@@ -7,12 +7,19 @@
 2. builds the Hamming CUDA kernel from csrc/hamming.cu and holds it against
    its plain PyTorch version for exact int32 equality at the per-frame
    association shapes and others, and times both;
-3. renders 120 frames (6 s) of the synthetic circuit at the EuRoC operating
-   point (752x480 stereo at 20 Hz, 200 Hz IMU, 704 keypoints) in memory and
-   feeds them to `VioPipeline` on the GPU: every pose must be finite, the
-   kernel must have been launched by the pipeline, and the online position
-   ATE must be at most 0.25 m; the first frames are also run on the CPU
-   (plain Hamming version) and must agree with the GPU run.
+3. VIO: renders 40 frames (2 s) of the synthetic circuit at the EuRoC
+   operating point (752x480 stereo at 20 Hz, 200 Hz IMU, 704 keypoints) in
+   memory and feeds them to `VioPipeline` on the GPU: every pose must be
+   finite, the kernel must have been launched by the pipeline, and the online
+   position ATE must be at most 0.25 m; the first frames are also run on the
+   CPU (plain Hamming version) and must agree with the GPU run;
+4. loop closure: the same operating point on a circuit of radius 2 m (one
+   lap in about 230 frames) with synchronous loop closure (BoW place
+   recognition on the shipped vocabulary, loop matching, non-central RANSAC,
+   pose-graph solve), then `finish()` and the final BA: at least one closure
+   must be accepted, the kernel must have been launched from the vocabulary
+   descent and the loop matching, every pose must be finite, and the online
+   and final ATE must both be at most 0.25 m.
 
 The second-to-last line is a JSON object describing the kernel; the last
 line is `{"ok": true, "device": {...}}`.  Any failure raises, and the script
@@ -26,9 +33,14 @@ import time
 
 import numpy as np
 
-SHAPES = [(1, 1), (37, 53), (257, 513), (704, 704), (704, 1024), (768, 16384)]
-TIMED = [(704, 1024), (768, 16384)]
-N_FRAMES = 120
+# association (704x704, 704x1024), vocabulary branches and leaves (704x64,
+# 704x4096), loop matching against three candidates (704x2112)
+SHAPES = [(1, 1), (37, 53), (257, 513), (704, 64), (704, 704), (704, 1024), (704, 2112),
+          (704, 4096), (768, 16384)]
+TIMED = [(704, 64), (704, 1024), (704, 2112), (704, 4096), (768, 16384)]
+N_FRAMES = 40
+LC_FRAMES = 260
+LC_RADIUS_M = 2.0
 ATE_LIMIT_M = 0.25
 CPU_FRAMES = 3
 CPU_GPU_TOL_M = 1e-3
@@ -94,8 +106,23 @@ def check_kernel(dev, card):
     return max_err, times
 
 
-def run_pipeline(seq, device, n_frames, record_times=False):
-    """Feed `n_frames` frames of `seq` to a fresh VioPipeline on `device`."""
+def render(n_frames, **traj_kwargs):
+    """`n_frames` frames of the circuit at the EuRoC operating point."""
+    from okvis2x_tpu_torch.io import synthetic
+
+    seq = synthetic.render_sequence(
+        duration=0.3 + n_frames / 20.0, frame_rate=20.0, imu_rate=200.0, width=752,
+        height=480, fx=460.0, density=22.0, seed=3, trajectory="circuit", scene_version=2,
+        traj_kwargs=traj_kwargs,
+    )
+    if len(seq.frame_t) < n_frames:
+        raise RuntimeError(f"rendered {len(seq.frame_t)} frames, need {n_frames}")
+    return seq
+
+
+def run_pipeline(seq, device, n_frames, record_times=False, loop_closure=False):
+    """Feed `n_frames` frames of `seq` to a fresh VioPipeline on `device`
+    (with synchronous loop closure when `loop_closure`)."""
     import torch
     from okvis2x_tpu_torch.cameras import pinhole
     from okvis2x_tpu_torch.graph.estimator import EstimatorConfig
@@ -107,8 +134,9 @@ def run_pipeline(seq, device, n_frames, record_times=False):
                                dtype=torch.float64, device=device)
     est_cfg = EstimatorConfig(cap_landmarks=1024, cap_obs=8192, max_iterations=10,
                               early_exit_rel=5e-4)
-    vio = VioPipeline([cam, cam], seq.T_SC, est_cfg, PipelineConfig(max_keypoints=704),
-                      device=device)
+    pipe_cfg = PipelineConfig(max_keypoints=704, do_loop_closures=loop_closure,
+                              async_place_recognition=False, async_loop_closure=False)
+    vio = VioPipeline([cam, cam], seq.T_SC, est_cfg, pipe_cfg, device=device)
     infos, wall = [], []
     n = 0
     for kind, data in seq.events():
@@ -126,6 +154,129 @@ def run_pipeline(seq, device, n_frames, record_times=False):
     return vio, infos, wall
 
 
+def check_positions(vio, n_frames, what):
+    ts = np.array([s[0] for s in vio.states_log])
+    Ts = np.stack([s[1] for s in vio.states_log])
+    if len(ts) != n_frames or not np.isfinite(Ts).all():
+        raise RuntimeError(f"non-finite or missing poses on the {what} path")
+    return ts, Ts
+
+
+def ate_checked(seq, ts, Ts, what):
+    from okvis2x_tpu_torch.io import trajectory_io
+
+    ate = trajectory_io.ate_rmse(ts, Ts[:, :3], seq.gt[:, 0], seq.gt[:, 1:4])
+    if ate is None or not ate <= ATE_LIMIT_M:
+        raise RuntimeError(f"{what} ATE {ate} m exceeds {ATE_LIMIT_M} m")
+    return ate
+
+
+def vio_phase(dev, card):
+    """40 frames of VIO on the GPU, the first frames again on the CPU.
+    Returns the kernel launches of the GPU run."""
+    import torch
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    seq = render(N_FRAMES)
+    print(f"rendered {N_FRAMES} frames at 752x480: {time.perf_counter() - t0:.1f} s")
+    timing.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hamming.reset_launch_counts()
+    t0 = time.perf_counter()
+    vio, infos, wall = run_pipeline(seq, dev, N_FRAMES, record_times=True)
+    t_run = time.perf_counter() - t0
+    launches = hamming.hamming_matrix_packed.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    ts, Ts = check_positions(vio, N_FRAMES, "VIO")
+    if launches <= 0:
+        raise RuntimeError("the VIO path never launched the Hamming kernel")
+    ate = ate_checked(seq, ts, Ts, "VIO online")
+    ms = np.asarray(wall) * 1e3
+    counts = np.array([[i["n_map"], i["n_stereo"], i["n_motion"]] for i in infos])
+    p50 = np.median(counts, axis=0)
+    print(f"VIO path: {N_FRAMES} frames in {t_run:.1f} s, dtype "
+          f"{vio.est.cfg.dtype}, online ATE {ate:.4f} m, ms/frame p50 "
+          f"{np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} "
+          f"(first frame {ms[0]:.1f}), peak allocated {peak / 2**20:.1f} MiB, "
+          f"hamming launches {launches} ({card})")
+    print(f"VIO path counts p50: map {p50[0]:.0f} stereo {p50[1]:.0f} motion "
+          f"{p50[2]:.0f}; keyframes {sum(i['is_keyframe'] for i in infos)} ({card})")
+    print(timing.report())
+
+    # the same first frames on the CPU (plain Hamming version)
+    t0 = time.perf_counter()
+    vio_c, _, _ = run_pipeline(seq, torch.device("cpu"), CPU_FRAMES)
+    p_cpu = np.stack([s[1][:3] for s in vio_c.states_log])
+    gap = float(np.abs(p_cpu - Ts[:CPU_FRAMES, :3]).max())
+    print(f"cpu vs gpu over {CPU_FRAMES} frames: max position gap {gap:.3e} m "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not gap <= CPU_GPU_TOL_M:
+        raise RuntimeError(f"GPU and CPU runs disagree by {gap} m")
+    return launches
+
+
+def loop_closure_phase(dev, card):
+    """Synchronous loop closure over one lap of the small circuit, then
+    finish() and the final BA.  Returns the kernel launches of the run."""
+    import torch
+    from okvis2x_tpu_torch.frontend import bow
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.utils import timing
+
+    t0 = time.perf_counter()
+    seq = render(LC_FRAMES, radius=LC_RADIUS_M)
+    print(f"rendered {LC_FRAMES} frames at 752x480, circuit radius {LC_RADIUS_M} m: "
+          f"{time.perf_counter() - t0:.1f} s")
+    timing.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hamming.reset_launch_counts()
+    t0 = time.perf_counter()
+    vio, infos, wall = run_pipeline(seq, dev, LC_FRAMES, record_times=True, loop_closure=True)
+    vio.finish()
+    t_run = time.perf_counter() - t0
+    ts, Ts = check_positions(vio, LC_FRAMES, "loop-closure")
+    t0 = time.perf_counter()
+    cost = vio.est.final_ba()
+    torch.cuda.synchronize()
+    t_ba = time.perf_counter() - t0
+    launches = hamming.hamming_matrix_packed.launches
+    sites = dict(hamming.hamming_matrix_packed.site_launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ft, fT = vio.est.full_trajectory()
+    if not np.isfinite(fT).all() or not np.isfinite(cost):
+        raise RuntimeError("non-finite poses or cost after the final BA")
+    closures = [(i["fid"], e["i"]) for i in infos if i["loop_closure"]
+                for e in vio.est.archive_edges if e.get("loop") and e["j"] == i["fid"]]
+    print(f"loop closures {vio.n_loop_closures} (frame, candidate) {closures}, landmarks "
+          f"merged {vio.n_landmarks_merged}, keyframe records {len(vio.kf_records)}")
+    print(f"hamming launches by site {sites}")
+    if vio.n_loop_closures < 1:
+        raise RuntimeError("no loop closure was accepted")
+    for site in ("bow", "lc_match"):
+        if sites.get(site, 0) <= 0:
+            raise RuntimeError(f"the Hamming kernel was never launched from site {site!r}")
+    ate_on = ate_checked(seq, ts, Ts, "loop-closure online")
+    ate_fin = ate_checked(seq, ft, fT, "final")
+    ms = np.asarray(wall) * 1e3
+    print(f"loop-closure path: {LC_FRAMES} frames in {t_run:.1f} s, online ATE "
+          f"{ate_on:.4f} m, final ATE {ate_fin:.4f} m over {len(ft)} keyframes, ms/frame "
+          f"p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f}, 2.8 LoopClosure "
+          f"mean {timing.mean_ms('2.8 LoopClosure'):.1f} ms, final BA {t_ba:.1f} s, peak "
+          f"allocated {peak / 2**20:.1f} MiB, hamming launches {launches} ({card})")
+    print(timing.report())
+
+    # the vocabulary descent of one keyframe on the card and on the CPU
+    rec = vio.kf_records[min(vio.kf_records)]
+    w_gpu = bow.assign_packed(rec["packed_d"], rec["valid_d"], vio.vocab).cpu()
+    w_cpu = bow.assign_packed(rec["packed_d"].cpu(), rec["valid_d"].cpu(), vio.vocab.to("cpu"))
+    if not torch.equal(w_gpu, w_cpu):
+        raise RuntimeError("vocabulary words differ between the card and the CPU")
+    print("vocabulary words of the first keyframe: card == CPU, exact")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -134,9 +285,6 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from okvis2x_tpu_torch.io import synthetic, trajectory_io
-    from okvis2x_tpu_torch.ops import hamming
-    from okvis2x_tpu_torch.utils import timing
 
     dev = torch.device("cuda:0")
     card = subprocess.run(
@@ -151,54 +299,13 @@ def main() -> int:
     max_err, times = check_kernel(dev, card)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 3: the main path
+    # ---- phases 3 and 4: the main paths
     t0 = time.perf_counter()
-    seq = synthetic.render_sequence(
-        duration=0.3 + N_FRAMES / 20.0, frame_rate=20.0, imu_rate=200.0, width=752,
-        height=480, fx=460.0, density=22.0, seed=3, trajectory="circuit", scene_version=2,
-    )
-    if len(seq.frame_t) < N_FRAMES:
-        raise RuntimeError(f"rendered {len(seq.frame_t)} frames, need {N_FRAMES}")
-    print(f"rendered {N_FRAMES} frames at 752x480: {time.perf_counter() - t0:.1f} s")
-
-    timing.reset()
-    hamming.hamming_matrix_packed.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
+    launches = vio_phase(dev, card)
+    print(f"VIO phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    vio, infos, wall = run_pipeline(seq, dev, N_FRAMES, record_times=True)
-    t_run = time.perf_counter() - t0
-    launches = hamming.hamming_matrix_packed.launches
-    peak = torch.cuda.max_memory_allocated(dev)
-    ts = np.array([s[0] for s in vio.states_log])
-    Ts = np.stack([s[1] for s in vio.states_log])
-    if len(ts) != N_FRAMES or not np.isfinite(Ts).all():
-        raise RuntimeError("non-finite or missing poses on the main path")
-    if launches <= 0:
-        raise RuntimeError("the main path never launched the Hamming kernel")
-    ate = trajectory_io.ate_rmse(ts, Ts[:, :3], seq.gt[:, 0], seq.gt[:, 1:4])
-    if ate is None or not ate <= ATE_LIMIT_M:
-        raise RuntimeError(f"online ATE {ate} m exceeds {ATE_LIMIT_M} m")
-    ms = np.asarray(wall) * 1e3
-    counts = np.array([[i["n_map"], i["n_stereo"], i["n_motion"]] for i in infos])
-    p50 = np.median(counts, axis=0)
-    print(f"main path: {N_FRAMES} frames in {t_run:.1f} s, dtype "
-          f"{vio.est.cfg.dtype}, online ATE {ate:.4f} m, ms/frame p50 "
-          f"{np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} "
-          f"(first frame {ms[0]:.1f}), peak allocated {peak / 2**20:.1f} MiB, "
-          f"hamming launches {launches} ({card})")
-    print(f"main path counts p50: map {p50[0]:.0f} stereo {p50[1]:.0f} motion "
-          f"{p50[2]:.0f}; keyframes {sum(i['is_keyframe'] for i in infos)} ({card})")
-    print(timing.report())
-
-    # ---- the same first frames on the CPU (plain Hamming version)
-    t0 = time.perf_counter()
-    vio_c, _, _ = run_pipeline(seq, torch.device("cpu"), CPU_FRAMES)
-    p_cpu = np.stack([s[1][:3] for s in vio_c.states_log])
-    gap = float(np.abs(p_cpu - Ts[:CPU_FRAMES, :3]).max())
-    print(f"cpu vs gpu over {CPU_FRAMES} frames: max position gap {gap:.3e} m "
-          f"({time.perf_counter() - t0:.1f} s)")
-    if not gap <= CPU_GPU_TOL_M:
-        raise RuntimeError(f"GPU and CPU runs disagree by {gap} m")
+    launches += loop_closure_phase(dev, card)
+    print(f"loop-closure phase: {time.perf_counter() - t0:.1f} s")
 
     k704 = times[(704, 1024)]
     print(json.dumps({"kernels": [{

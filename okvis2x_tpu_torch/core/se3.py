@@ -78,6 +78,37 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion [x,y,z,w], branch-free (Shepperd's
+    method with the four candidate solutions selected by `where`)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12))
+
+    sw = safe_sqrt(1.0 + tr)
+    sx = safe_sqrt(1.0 + m00 - m11 - m22)
+    sy = safe_sqrt(1.0 - m00 + m11 - m22)
+    sz = safe_sqrt(1.0 - m00 - m11 + m22)
+    qw_w = torch.stack([(m21 - m12) / (2 * sw), (m02 - m20) / (2 * sw),
+                        (m10 - m01) / (2 * sw), sw / 2], dim=-1)
+    qx_w = torch.stack([sx / 2, (m01 + m10) / (2 * sx),
+                        (m02 + m20) / (2 * sx), (m21 - m12) / (2 * sx)], dim=-1)
+    qy_w = torch.stack([(m01 + m10) / (2 * sy), sy / 2,
+                        (m12 + m21) / (2 * sy), (m02 - m20) / (2 * sy)], dim=-1)
+    qz_w = torch.stack([(m02 + m20) / (2 * sz), (m12 + m21) / (2 * sz),
+                        sz / 2, (m10 - m01) / (2 * sz)], dim=-1)
+    cond_w = (tr > 0.0)[..., None]
+    cond_x = ((m00 > m11) & (m00 > m22))[..., None]
+    cond_y = (m11 > m22)[..., None]
+    q = torch.where(cond_w, qw_w,
+                    torch.where(cond_x, qx_w, torch.where(cond_y, qy_w, qz_w)))
+    return quat_normalize(q)
+
+
 def delta_q(dalpha: torch.Tensor) -> torch.Tensor:
     """Exact exponential of a small rotation vector as a quaternion:
     q = [sinc(|a|/2) * a/2, cos(|a|/2)] with a Taylor-safe sinc."""

@@ -16,9 +16,20 @@ Window policy (the reference's applyStrategy):
   * landmarks without observations are deleted.
 
 IMU links are chained, cached f64 host preintegrations re-propagated only
-when the bias moved past the redo thresholds.  GNSS, online extrinsics,
-live submap-ICP rows, depth priors, loop-closure surgery and the final BA
-are not part of the port yet; the options that would enable them raise
+when the bias moved past the redo thresholds.
+
+Long-term state for loop closure and the final BA: frames that leave the
+window go to `archive_frames` with their edges, their observations to an
+observation archive, pruned landmarks to `arch_lm`, and trimmed raw IMU
+samples to an IMU archive.  Loop closure brings an archived keyframe back
+as an "expanded" pose-graph frame (held, damped towards its pre-hold pose),
+merges landmarks, and solves the pose graph in line (`close_loop`).
+`final_ba` re-expands the whole history into one bundle adjustment with
+re-propagated IMU links, or into a pose graph plus overlapping segments
+beyond `max_nodes` keyframes.
+
+GNSS, online extrinsics, live submap-ICP rows and depth priors are not part
+of the port yet; the options that would enable them raise
 ``NotImplementedError``.
 """
 
@@ -31,8 +42,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from okvis2x_tpu_torch.core import se3np
 from okvis2x_tpu_torch.factors import imu_factor
 from okvis2x_tpu_torch.factors.reprojection import residual as reprojection_residual
+from okvis2x_tpu_torch.graph import posegraph
 from okvis2x_tpu_torch.graph.marginalization import two_pose_edge
 from okvis2x_tpu_torch.graph.posegraph import max_spanning_tree
 from okvis2x_tpu_torch.imu import preintegration as pre
@@ -85,6 +98,12 @@ class FrameState:
     # marginalised keyframe kept as a frozen pose-graph anchor: its
     # observations became two-pose edges; no speed/bias, no IMU links
     pose_graph_frame: bool = False
+    # pose-graph frame whose observations were re-expanded into the window
+    # (loop closure): its pose optimises again, still without IMU links
+    expanded: bool = False
+    # pose when a loop closure brought the frame back (anchor of its
+    # damping prior and of the writeback clamp)
+    pre_hold_T: Optional[np.ndarray] = None
 
 
 _OBS_COLS = ("obs_fid", "obs_cam", "obs_lid", "obs_uv", "obs_sigma", "obs_uid")
@@ -124,10 +143,21 @@ class SlidingWindowEstimator:
         self.obs_uid = np.zeros((0,), np.int64)
         self._obs_uid_next = 0
 
-        # IMU raw buffer: amortised growable array + start offset
+        # IMU raw buffer: amortised growable array + start offset; trimmed
+        # samples move to the archive buffer, which the final BA reads to
+        # re-propagate IMU links over archived keyframe spans
         self._imu_buf = np.zeros((4096, 7))  # [t, gyr(3), acc(3)]
         self._imu_start = 0
         self._imu_n = 0
+        self._arch_imu_buf = np.zeros((4096, 7))
+        self._arch_imu_n = 0
+
+        # bumped by every applied global correction (loop-closure pose
+        # graph, final-BA writeback)
+        self.correction_epoch = 0
+        # loop-closure frames held in the window: protected from archival
+        # by the frame cap while the pipeline holds them
+        self.lc_protected: set = set()
 
         # chained per-link preintegration cache: (fid_a, fid_b) ->
         # (Preintegrated f64 numpy, sqrt_info (15, 15) f64)
@@ -138,7 +168,12 @@ class SlidingWindowEstimator:
         self.rel_edges: List[dict] = []
         self.archive_frames: Dict[int, FrameState] = {}
         self.archive_edges: List[dict] = []
-        # landmark positions snapshotted when pruned
+        # observations of frames that left the window (growable stores read
+        # through the arch_obs_* views) and landmark positions snapshotted
+        # when pruned
+        self._arch_obs_i = np.zeros((1024, 3), np.int64)  # fid, cam, lid
+        self._arch_obs_f = np.zeros((1024, 3))  # uv(2), sigma
+        self._arch_obs_n = 0
         self.arch_lm: Dict[int, np.ndarray] = {}
 
         # priors on the first state
@@ -160,6 +195,18 @@ class SlidingWindowEstimator:
     @property
     def imu_acc(self):
         return self._imu_buf[self._imu_start:self._imu_n, 4:7]
+
+    @property
+    def arch_imu_t(self):
+        return self._arch_imu_buf[:self._arch_imu_n, 0]
+
+    @property
+    def arch_imu_gyr(self):
+        return self._arch_imu_buf[:self._arch_imu_n, 1:4]
+
+    @property
+    def arch_imu_acc(self):
+        return self._arch_imu_buf[:self._arch_imu_n, 4:7]
 
     def add_imu_measurement(self, t: float, gyr, acc):
         if self._imu_n == len(self._imu_buf):
@@ -189,7 +236,25 @@ class SlidingWindowEstimator:
             return
         keep = self.imu_t >= self.frames[0].timestamp - 0.5
         first = int(np.argmax(keep)) if keep.any() else len(self.imu_t)
-        self._imu_start += max(first - 1, 0)
+        first = max(first - 1, 0)
+        if first > 0:
+            rows = self._imu_buf[self._imu_start:self._imu_start + first]
+            need = self._arch_imu_n + first
+            if need > len(self._arch_imu_buf):
+                buf = np.zeros((max(need, 2 * len(self._arch_imu_buf)), 7))
+                buf[: self._arch_imu_n] = self._arch_imu_buf[: self._arch_imu_n]
+                self._arch_imu_buf = buf
+            self._arch_imu_buf[self._arch_imu_n:need] = rows
+            self._arch_imu_n = need
+            self._imu_start += first
+
+    def _full_imu_arrays(self):
+        """(t, gyr, acc) over the archive and live buffers, time-ordered."""
+        return (
+            np.append(self.arch_imu_t, self.imu_t),
+            np.vstack([self.arch_imu_gyr, self.imu_gyr]),
+            np.vstack([self.arch_imu_acc, self.imu_acc]),
+        )
 
     # ---------------------------------------------------------------- states
     def add_state(self, timestamp: float) -> int:
@@ -238,14 +303,19 @@ class SlidingWindowEstimator:
         self._next_fid += 1
         return f.fid
 
-    def _preintegrate_batch(self, spans, n_rows: int, S: Optional[int] = None):
-        """spans: list of (t0, t1, bg, ba) over the live buffer; returns
-        (Preintegrated batched to n_rows, W (n_rows, 15, 15)) on the device,
-        invalid rows padded with identity.  Spans longer than S samples are
-        uniformly subsampled."""
+    def _preintegrate_batch(self, spans, n_rows: int, S: Optional[int] = None,
+                            imu_arrays=None):
+        """spans: list of (t0, t1, bg, ba); returns (Preintegrated batched to
+        n_rows, W (n_rows, 15, 15)) on the device, invalid rows padded with
+        identity.  Spans longer than S samples are uniformly subsampled.
+        `imu_arrays` = (t, gyr, acc) replaces the live buffer as the sample
+        source (the final BA passes the archive + live samples)."""
         cfg = self.cfg
         S = S or cfg.cap_imu_samples
-        t_arr, gyr_arr, acc_arr = self.imu_t, self.imu_gyr, self.imu_acc
+        if imu_arrays is None:
+            t_arr, gyr_arr, acc_arr = self.imu_t, self.imu_gyr, self.imu_acc
+        else:
+            t_arr, gyr_arr, acc_arr = imu_arrays
         if len(spans) > n_rows:
             raise ValueError(f"{len(spans)} spans exceed {n_rows} rows")
         tB = np.zeros((n_rows, S))
@@ -454,15 +524,19 @@ class SlidingWindowEstimator:
         frame_valid = np.zeros(K, bool)
         frame_valid[:nf] = True
         pose_fixed = np.zeros(K, bool)
-        pose_fixed[:nf] = [f.pose_fixed or f.pose_graph_frame for f in self.frames]
+        pose_fixed[:nf] = [f.pose_fixed or (f.pose_graph_frame and not f.expanded)
+                           for f in self.frames]
         sb_fixed = np.ones(K, bool)
         sb_fixed[:nf] = [f.pose_graph_frame or f.sb_fixed for f in self.frames]
 
         # observations whose frame and landmark are both live
-        slot_of = np.full(max(self._next_fid, 1), -1, np.int64)
+        # (frame ids imported from elsewhere may lie beyond _next_fid)
+        n_fid = max(self._next_fid, max(fid2slot, default=0) + 1,
+                    int(self.obs_fid.max(initial=0)) + 1)
+        slot_of = np.full(n_fid, -1, np.int64)
         for fid, s in fid2slot.items():
             slot_of[fid] = s
-        row_of = np.full(max(self._next_lid, 1), -1, np.int64)
+        row_of = np.full(max(self._next_lid, int(self.obs_lid.max(initial=0)) + 1), -1, np.int64)
         row_of[np.asarray(self.lm_ids, np.int64)] = np.arange(nl)
         obs_slot = slot_of[self.obs_fid]
         obs_row = row_of[self.obs_lid]
@@ -518,6 +592,20 @@ class SlidingWindowEstimator:
             sb_prior[s] = self.prior_sb
             sb_prior_si[s] = self.prior_sb_sqrt_info
             sb_prior_valid[s] = True
+        # weak damping prior (sigma 10 m / 3.3 rad) on every held
+        # loop-closure frame, anchored at its pre-hold pose: such a frame has
+        # no IMU chain, only restored observations, and once merges or
+        # outlier cuts leave it under-constrained the robust loss lets the
+        # solver scatter it for almost no cost (the JAX package measured
+        # frames parked up to 1394 m out); constrained frames refine
+        # through a prior orders of magnitude weaker than their observations
+        damp_si = np.diag([0.1, 0.1, 0.1, 0.3, 0.3, 0.3])
+        for sl, fr in enumerate(self.frames):
+            if (fr.pose_graph_frame and fr.expanded and not fr.pose_fixed
+                    and not pose_prior_valid[sl]):
+                pose_prior_T[sl] = fr.pre_hold_T if fr.pre_hold_T is not None else fr.T_WS
+                pose_prior_si[sl] = damp_si
+                pose_prior_valid[sl] = True
 
         # relative pose edges (weakest dropped beyond capacity)
         if len(self.rel_edges) > Rcap:
@@ -565,6 +653,40 @@ class SlidingWindowEstimator:
             early_exit_rel=self.cfg.early_exit_rel,
         )
 
+    def _clamp_held(self, fr: FrameState, T_new: np.ndarray) -> np.ndarray:
+        """Writeback guard for held loop-closure frames: a result more than
+        8 m from the pre-hold anchor is scatter of an under-constrained pose,
+        not a correction, so the anchor is kept."""
+        if fr.pre_hold_T is not None and np.linalg.norm(
+                np.asarray(T_new)[:3] - fr.pre_hold_T[:3]) > 8.0:
+            return np.asarray(fr.pre_hold_T, np.float64).copy()
+        return T_new
+
+    def _writeback(self, p_opt, fid2slot):
+        T = p_opt.T_WS.cpu().numpy().astype(np.float64)
+        sb = p_opt.sb.cpu().numpy().astype(np.float64)
+        hp = p_opt.hp_W.cpu().numpy().astype(np.float64)
+        for fr_id, slot in fid2slot.items():
+            fr = self._frame_by_id(fr_id)
+            fr.T_WS = self._clamp_held(fr, T[slot])
+            fr.sb = sb[slot]
+        self.hp_W = hp[: len(self.lm_ids)]
+
+    def optimise(self, iterations: Optional[int] = None, pose_only: bool = False) -> float:
+        """Ungated window solve with writeback (run after a loop closure);
+        returns the final cost."""
+        if pose_only:
+            raise NotImplementedError("the pose-only refinement is not ported yet")
+        iters = iterations or self.cfg.max_iterations
+        with timing.Timer("3.1 BuildProblem"):
+            p, fid2slot, _ = self._build_problem()
+        with timing.Timer("3.2 SolveDevice"):
+            p_opt, cost = gn.optimize(p, self.cams, self._solver_config(iters))
+            cost = float(cost)
+        with timing.Timer("3.3 Readback"):
+            self._writeback(p_opt, fid2slot)
+        return cost
+
     def optimise_gated(self, fid: int, gate_px: float, iterations: Optional[int] = None,
                        iterations2: int = 2):
         """Window solve, chi2 gate on the observations of frame `fid`, short
@@ -586,16 +708,9 @@ class SlidingWindowEstimator:
             p2 = p1._replace(obs_valid=p1.obs_valid & ~out)
             p3, cost = gn.optimize(p2, self.cams, self._solver_config(iterations2))
         with timing.Timer("3.3 Readback"):
-            T = p3.T_WS.cpu().numpy().astype(np.float64)
-            sb = p3.sb.cpu().numpy().astype(np.float64)
-            hp = p3.hp_W.cpu().numpy().astype(np.float64)
+            self._writeback(p3, fid2slot)
             out_rows = np.nonzero(out.cpu().numpy())[0]
             cost = float(cost)
-        for fr_id, slot in fid2slot.items():
-            fr = self._frame_by_id(fr_id)
-            fr.T_WS = T[slot]
-            fr.sb = sb[slot]
-        self.hp_W = hp[: len(self.lm_ids)]
         if len(out_rows):
             bad = obs_uids[out_rows[out_rows < len(obs_uids)]]
             self._keep_obs(~np.isin(self.obs_uid, bad))
@@ -651,19 +766,16 @@ class SlidingWindowEstimator:
             self._marginalise_keyframe(victim)
 
         while len(self.frames) > cfg.cap_frames - 1:
-            pg = [f for f in self.frames if f.pose_graph_frame]
+            pg = [f for f in self.frames
+                  if f.pose_graph_frame and f.fid not in self.lc_protected]
             if not pg:
-                break
-            victim = pg[0]
-            self.archive_frames[victim.fid] = victim
-            self._drop_frame(victim.fid)
-            keep = []
-            for e in self.rel_edges:
-                if victim.fid in (e["i"], e["j"]):
-                    self.archive_edges.append(e)
-                else:
-                    keep.append(e)
-            self.rel_edges = keep
+                # only held loop-closure frames left: release the oldest
+                # rather than overflow the fixed capacities
+                pg = [f for f in self.frames if f.pose_graph_frame]
+                if not pg:
+                    break
+                self.lc_protected.discard(pg[0].fid)
+            self._archive_frame(pg[0])
 
         self._prune_landmarks()
         self._prune_imu_links()
@@ -755,10 +867,707 @@ class SlidingWindowEstimator:
         self.rel_edges.extend(edges)
         self._merge_chain_link(victim.fid)
         victim.pose_graph_frame = True
-        self._keep_obs(self.obs_fid != victim.fid)
+        # the edges summarise the observations in the window; the final BA
+        # and loop closure re-expand them from the archive
+        gone = self.obs_fid == victim.fid
+        self._archive_obs(gone)
+        self._keep_obs(~gone)
+
+    def _archive_frame(self, victim: FrameState):
+        """Move a window pose-graph frame and its edges to the long-term
+        graph; a held (expanded) frame first returns its live observations
+        to the archive and freezes again."""
+        if victim.expanded:
+            self._archive_obs(self.obs_fid == victim.fid)
+            victim.expanded = False
+            victim.pose_fixed = True
+        self.archive_frames[victim.fid] = victim
+        self._drop_frame(victim.fid)
+        keep = []
+        for e in self.rel_edges:
+            if victim.fid in (e["i"], e["j"]):
+                self.archive_edges.append(e)
+            else:
+                keep.append(e)
+        self.rel_edges = keep
+
+    # -- archived observations (growable stores read through views) ------
+    @property
+    def arch_obs_fid(self):
+        return self._arch_obs_i[:self._arch_obs_n, 0]
+
+    @property
+    def arch_obs_cam(self):
+        return self._arch_obs_i[:self._arch_obs_n, 1]
+
+    @property
+    def arch_obs_lid(self):
+        return self._arch_obs_i[:self._arch_obs_n, 2]
+
+    @property
+    def arch_obs_uv(self):
+        return self._arch_obs_f[:self._arch_obs_n, 0:2]
+
+    @property
+    def arch_obs_sigma(self):
+        return self._arch_obs_f[:self._arch_obs_n, 2]
+
+    def _arch_obs_reserve(self, need: int):
+        if need > len(self._arch_obs_i):
+            cap = max(need, 2 * len(self._arch_obs_i))
+            bi = np.zeros((cap, 3), np.int64)
+            bf = np.zeros((cap, 3))
+            bi[: self._arch_obs_n] = self._arch_obs_i[: self._arch_obs_n]
+            bf[: self._arch_obs_n] = self._arch_obs_f[: self._arch_obs_n]
+            self._arch_obs_i, self._arch_obs_f = bi, bf
+
+    def _archive_obs(self, mask: np.ndarray):
+        """Append the live observations selected by `mask` to the archive
+        (the live rows are left for the caller to drop)."""
+        k = int(mask.sum())
+        if k == 0:
+            return
+        need = self._arch_obs_n + k
+        self._arch_obs_reserve(need)
+        sl = slice(self._arch_obs_n, need)
+        self._arch_obs_i[sl, 0] = self.obs_fid[mask]
+        self._arch_obs_i[sl, 1] = self.obs_cam[mask]
+        self._arch_obs_i[sl, 2] = self.obs_lid[mask]
+        self._arch_obs_f[sl, 0:2] = self.obs_uv[mask]
+        self._arch_obs_f[sl, 2] = self.obs_sigma[mask]
+        self._arch_obs_n = need
+
+    def archive_observation(self, fid: int, cam: int, lid: int, uv, sigma: float = 1.0):
+        """Append one row to the archived-observation store (map import and
+        tests; the runtime path archives in bulk with `_archive_obs`)."""
+        n = self._arch_obs_n
+        self._arch_obs_reserve(n + 1)
+        self._arch_obs_i[n] = (fid, cam, lid)
+        self._arch_obs_f[n, 0:2] = uv
+        self._arch_obs_f[n, 2] = sigma
+        self._arch_obs_n = n + 1
+
+    def _arch_obs_compact(self, keep: np.ndarray):
+        """Drop archived observation rows where `keep` is False."""
+        n = self._arch_obs_n
+        k = int(keep.sum())
+        self._arch_obs_i[:k] = self._arch_obs_i[:n][keep]
+        self._arch_obs_f[:k] = self._arch_obs_f[:n][keep]
+        self._arch_obs_n = k
+
+    # ----------------------------------------------------- loop closure
+    def pose_graph(self):
+        """All known keyframe poses (archived and windowed) and relative
+        edges, time-ordered: the long-term pose graph."""
+        nodes: List[FrameState] = sorted(
+            list(self.archive_frames.values())
+            + [f for f in self.frames if f.is_keyframe or f.pose_graph_frame],
+            key=lambda f: f.timestamp,
+        )
+        return nodes, list(self.archive_edges) + list(self.rel_edges)
+
+    def add_loop_edge(self, fid_cur: int, fid_cand: int, T_cand_cur: np.ndarray,
+                      sqrt_info: np.ndarray) -> bool:
+        """Persist an accepted loop-closure constraint as a long-term
+        pose-graph edge."""
+        known = {f.fid for f in self.frames} | set(self.archive_frames)
+        if fid_cur not in known or fid_cand not in known:
+            return False
+        self.archive_edges.append(dict(
+            i=fid_cand, j=fid_cur, T_ij=np.asarray(T_cand_cur, np.float64),
+            sqrt_info=np.asarray(sqrt_info, np.float64), loop=True,
+        ))
+        return True
+
+    def _restore_landmark(self, lid: int) -> bool:
+        """Bring an archived landmark back into the live store (refused at
+        capacity: the caller then restores fewer observations)."""
+        if lid in self.lm_index:
+            return True
+        if len(self.lm_ids) >= self.cfg.cap_landmarks:
+            return False
+        hp = self.arch_lm.pop(lid, None)
+        if hp is None:
+            return False
+        self.lm_index[lid] = len(self.lm_ids)
+        self.lm_ids.append(lid)
+        self.hp_W = np.vstack([self.hp_W, np.asarray(hp)[None]])
+        return True
+
+    def expand_keyframe(self, fid: int, max_restore: Optional[int] = None) -> int:
+        """Turn a window pose-graph frame's summary back into live
+        observations: restore its archived observations and landmarks, drop
+        the marginalisation edges that summarised them, and let the pose
+        optimise again.  Returns the number of observations restored."""
+        f = self._frame_by_id(fid)
+        take = np.nonzero(self.arch_obs_fid == fid)[0]
+        # never restore past the observation capacity (headroom is kept for
+        # the next frame's associations)
+        headroom = (self.cfg.cap_obs - len(self.obs_fid)
+                    - min(1024, self.cfg.cap_obs // 4))
+        max_restore = min(max_restore if max_restore is not None else len(take),
+                          max(headroom, 0))
+        if len(take) > max_restore:
+            # prefer observations of landmarks already live: they couple the
+            # expanded frame to the window
+            live_first = sorted(
+                take.tolist(), key=lambda i: int(self.arch_obs_lid[i]) not in self.lm_index)
+            take = np.asarray(live_first[:max_restore], np.int64)
+        keep_idx = [int(i) for i in take
+                    if self._restore_landmark(int(self.arch_obs_lid[i]))]
+        if keep_idx:
+            ki = np.asarray(keep_idx)
+            n = len(ki)
+            self.obs_fid = np.append(self.obs_fid, self.arch_obs_fid[ki])
+            self.obs_cam = np.append(self.obs_cam, self.arch_obs_cam[ki])
+            self.obs_lid = np.append(self.obs_lid, self.arch_obs_lid[ki])
+            self.obs_uv = np.vstack([self.obs_uv, self.arch_obs_uv[ki]])
+            self.obs_sigma = np.append(self.obs_sigma, self.arch_obs_sigma[ki])
+            self.obs_uid = np.append(
+                self.obs_uid, np.arange(self._obs_uid_next, self._obs_uid_next + n))
+            self._obs_uid_next += n
+        if len(take):
+            inv = np.ones(self._arch_obs_n, bool)
+            inv[take] = False
+            self._arch_obs_compact(inv)
+        # the summarising two-pose edges would count the observations twice
+        drop = lambda e: e.get("marg") and fid in (e["i"], e["j"])  # noqa: E731
+        self.rel_edges = [e for e in self.rel_edges if not drop(e)]
+        self.archive_edges = [e for e in self.archive_edges if not drop(e)]
+        if f.pose_graph_frame:
+            f.expanded = True
+            f.pose_fixed = False
+        return len(keep_idx)
+
+    def add_loopclosure_frame(self, fid: int, max_restore: Optional[int] = None) -> bool:
+        """Bring an archived keyframe back into the window as an expanded
+        pose-graph frame, so that its landmarks can be re-observed and
+        merged."""
+        if any(f.fid == fid for f in self.frames):
+            self.expand_keyframe(fid, max_restore)
+            return True
+        f = self.archive_frames.pop(fid, None)
+        if f is None:
+            return False
+        f.pre_hold_T = f.T_WS.copy()
+        # the window may sit at capacity (marginalise trims only at frame
+        # boundaries): archive the oldest unprotected pose-graph frame
+        # first, and refuse when there is none
+        while len(self.frames) >= self.cfg.cap_frames - 1:
+            pg = [fr for fr in self.frames
+                  if fr.pose_graph_frame and fr.fid not in self.lc_protected]
+            if not pg:
+                self.archive_frames[fid] = f
+                return False
+            self._archive_frame(pg[0])
+        f.pose_graph_frame = True
+        f.pose_fixed = False
+        self.frames.append(f)
+        self.frames.sort(key=lambda fr: fr.timestamp)
+        self.lc_protected.add(fid)
+        self.expand_keyframe(fid, max_restore)
+        return True
+
+    def remove_loopclosure_frame(self, fid: int) -> bool:
+        """Re-archive a held loop-closure frame: its observations return to
+        the archive and it leaves the window.  False when the frame is no
+        longer in the window."""
+        try:
+            f = self._frame_by_id(fid)
+        except KeyError:
+            return False
+        gone = self.obs_fid == fid
+        self._archive_obs(gone)
+        self._keep_obs(~gone)
+        f.expanded = False
+        f.pose_fixed = True
+        if f.pre_hold_T is not None:
+            moved = float(np.linalg.norm(f.T_WS[:3] - f.pre_hold_T[:3]))
+            if moved > 8.0:
+                # the held frame scattered in the window: re-archiving that
+                # pose would poison every later pose-graph solve, and a
+                # real correction is bounded by the drift budget
+                logging.warning("loop-closure frame %d re-archived with pre-hold pose:"
+                                " window moved it %.1f m", fid, moved)
+                f.T_WS = f.pre_hold_T.copy()
+            f.pre_hold_T = None
+        self.frames.remove(f)
+        self.archive_frames[fid] = f
+        self.lc_protected.discard(fid)
+        self._prune_landmarks()
+        return True
+
+    def merge_landmarks(self, lid_keep: int, lid_drop: int) -> bool:
+        """Merge two landmarks recognised as one point after a loop closure:
+        every live and archived observation of `lid_drop` re-points to
+        `lid_keep`."""
+        if lid_keep == lid_drop:
+            return False
+        if lid_keep not in self.lm_index and not self._restore_landmark(lid_keep):
+            return False
+        self.obs_lid = np.where(self.obs_lid == lid_drop, lid_keep, self.obs_lid)
+        alid = self.arch_obs_lid  # a view into the backing store
+        alid[alid == lid_drop] = lid_keep
+        if lid_drop in self.lm_index:
+            row = self.lm_index.pop(lid_drop)
+            self.lm_ids.pop(row)
+            self.hp_W = np.delete(self.hp_W, row, 0)
+            self.lm_index = {lid: i for i, lid in enumerate(self.lm_ids)}
+        self.arch_lm.pop(lid_drop, None)
+        return True
+
+    def snapshot_pose_graph(self) -> Optional[dict]:
+        """The long-term pose graph as arrays: every keyframe pose, the
+        relative and loop edges, and an odometry edge between consecutive
+        nodes that no edge connects."""
+        nodes, edges = self.pose_graph()
+        if len(nodes) < 2:
+            return None
+        fids = [f.fid for f in nodes]
+        idx = {fid: i for i, fid in enumerate(fids)}
+        connected = {(min(e["i"], e["j"]), max(e["i"], e["j"])) for e in edges}
+        all_edges = [e for e in edges if e["i"] in idx and e["j"] in idx]
+        for a, b in zip(nodes[:-1], nodes[1:]):
+            if (a.fid < 0) != (b.fid < 0):
+                continue
+            if (min(a.fid, b.fid), max(a.fid, b.fid)) not in connected:
+                T_ij = se3np.se3_multiply(se3np.se3_inverse(a.T_WS), b.T_WS)
+                # an implausibly long step (a corrupted node pose) must not
+                # become high-confidence odometry
+                w = 50.0 if np.linalg.norm(T_ij[:3]) < 10.0 else 1.0
+                all_edges.append(dict(i=a.fid, j=b.fid, T_ij=T_ij, sqrt_info=np.eye(6) * w))
+        fixed = np.array([f.pose_fixed for f in nodes], bool)
+        fixed[0] = True
+        return dict(
+            fids=fids, epoch=self.correction_epoch,
+            T=np.stack([f.T_WS for f in nodes]), fixed=fixed,
+            ei=np.array([idx[e["i"]] for e in all_edges], np.int64),
+            ej=np.array([idx[e["j"]] for e in all_edges], np.int64),
+            eT=np.stack([e["T_ij"] for e in all_edges]),
+            eS=np.stack([e["sqrt_info"] for e in all_edges]),
+        )
+
+    def apply_pose_graph_result(self, fids: List[int], T_opt: np.ndarray,
+                                backlog: bool = True) -> bool:
+        """Write an optimised pose graph back: snapshot nodes still known
+        take their optimised poses, archived landmarks move with their host
+        keyframes, and (with `backlog`) every other window frame and live
+        landmark moves rigidly by the change of the newest window frame that
+        was in the snapshot.  Partial snapshots (final-BA segments) pass
+        backlog=False so a mid-history correction does not drag the live
+        window.  Corrections that move the anchor or any node by more than
+        8 m are rejected."""
+        T_opt = np.asarray(T_opt)
+        if not np.all(np.isfinite(T_opt)):
+            return False
+        idx = {fid: i for i, fid in enumerate(fids)}
+        anchor = None
+        if backlog:
+            anchor = next((f for f in reversed(self.frames) if f.fid in idx), None)
+        dT = None
+        if anchor is not None:
+            dT = se3np.se3_multiply(T_opt[idx[anchor.fid]], se3np.se3_inverse(anchor.T_WS))
+            dt_mag = float(np.linalg.norm(dT[:3]))
+            if dt_mag > 8.0:
+                logging.warning("pose-graph sync rejected: rigid backlog delta %.1f m "
+                                "(anchor fid %d)", dt_mag, anchor.fid)
+                return False
+            if dt_mag > 1.0:
+                logging.warning("pose-graph sync: large rigid backlog delta %.2f m "
+                                "(anchor fid %d)", dt_mag, anchor.fid)
+        window = {f.fid: f for f in self.frames}
+        T_old_nodes = np.zeros_like(T_opt)
+        node_known = np.zeros(len(fids), bool)
+        for k, fid in enumerate(fids):
+            f = self.archive_frames.get(fid) or window.get(fid)
+            if f is not None:
+                T_old_nodes[k] = f.T_WS
+                node_known[k] = True
+        if node_known.any():
+            node_move = np.linalg.norm(
+                T_opt[node_known, :3] - T_old_nodes[node_known, :3], axis=1).max()
+            if node_move > 8.0:
+                logging.warning("pose-graph result rejected: max node movement %.1f m",
+                                node_move)
+                return False
+        for fid, Tn in zip(fids, T_opt):
+            f = self.archive_frames.get(fid) or window.get(fid)
+            if f is not None:
+                f.T_WS = np.asarray(Tn).copy()
+                if f.pre_hold_T is not None:
+                    f.pre_hold_T = np.asarray(Tn).copy()
+        self._correct_archived_landmarks(idx, node_known, T_old_nodes, T_opt, dT)
+        self.correction_epoch += 1
+        if dT is None:
+            return True
+        dR = se3np.quat_to_matrix(dT[3:7])
+        for f in self.frames:
+            if f.fid in idx or f.pose_graph_frame:
+                continue
+            f.T_WS = se3np.se3_multiply(dT, f.T_WS)
+            f.sb = np.concatenate([dR @ f.sb[0:3], f.sb[3:9]])
+        if len(self.hp_W):
+            self.hp_W = se3np.se3_apply_homogeneous(dT, self.hp_W)
+        return True
+
+    def _correct_archived_landmarks(self, idx, node_known, T_old, T_new, dT):
+        """Move each archived landmark by its host keyframe's pose change
+        (host = newest archived observer); landmarks whose host is not a
+        snapshot node take the rigid backlog delta `dT`."""
+        n = self._arch_obs_n
+        if not self.arch_lm or (n == 0 and dT is None):
+            return
+        host_of = {}
+        if n:
+            lid_rev = self._arch_obs_i[:n, 2][::-1]
+            fid_rev = self._arch_obs_i[:n, 0][::-1]
+            u, first = np.unique(lid_rev, return_index=True)
+            host_of = dict(zip(u.tolist(), fid_rev[first].tolist()))
+        items = list(self.arch_lm.items())
+        hp = np.stack([p for _, p in items])
+        deltas = np.zeros((len(items), 7))
+        deltas[:, 6] = 1.0
+        have = np.zeros(len(items), bool)
+        node_dT = se3np.se3_multiply(T_new, se3np.se3_inverse(T_old))
+        for k, (lid, _) in enumerate(items):
+            g = idx.get(host_of.get(lid))
+            if g is not None and node_known[g]:
+                deltas[k] = node_dT[g]
+                have[k] = True
+            elif dT is not None:
+                deltas[k] = dT
+                have[k] = True
+        if not have.any():
+            return
+        hp2 = se3np.se3_apply_homogeneous(deltas, hp)
+        for k, (lid, _) in enumerate(items):
+            if have[k]:
+                self.arch_lm[lid] = hp2[k]
+
+    def close_loop(self, fid_cur: int, fid_cand: int, T_cand_cur: np.ndarray,
+                   sqrt_info: np.ndarray, iterations: int = 10) -> bool:
+        """Accepted loop closure, synchronous path: persist the loop edge,
+        solve the whole pose graph in line and write the result back."""
+        if not self.add_loop_edge(fid_cur, fid_cand, T_cand_cur, sqrt_info):
+            return False
+        snap = self.snapshot_pose_graph()
+        if snap is None:
+            self.archive_edges.pop()
+            return False
+        T_opt, _ = posegraph.optimize_pose_graph(
+            snap["T"], snap["fixed"], snap["ei"], snap["ej"], snap["eT"], snap["eS"],
+            iterations=iterations, dtype=self.cfg.dtype, device=self.device,
+        )
+        if not np.all(np.isfinite(T_opt)):
+            self.archive_edges.pop()
+            return False
+        return self.apply_pose_graph_result(snap["fids"], T_opt)
+
+    # --------------------------------------------------------------- final BA
+    def _full_problem(self, use_imu: bool, node_slice=None, fix_margin: int = 0):
+        """The whole-history BA problem: archived and live observations
+        re-expanded, marginalisation edges dropped (their information
+        returns as the observations), loop edges kept, and with `use_imu`
+        IMU links between consecutive keyframes re-propagated from the raw
+        samples at the current biases.  `node_slice=(i0, i1)` restricts it
+        to a node range whose first and last `fix_margin` nodes are held
+        fixed.  Returns (problem, aux) or None.
+
+        Capacities are padded as the JAX package pads them (K to a power of
+        two from 16, L from 64, N from 256, R from 16, M from 8), so the
+        solver takes the same branch: the reduced system is inverted up to
+        K = 64 and solved by conjugate gradients from K = 128."""
+        nodes, edges = self.pose_graph()
+        if node_slice is not None:
+            nodes = nodes[node_slice[0]:node_slice[1]]
+        if len(nodes) < 2:
+            return None
+        edges = [e for e in edges if not e.get("marg")]
+        fid2slot = {f.fid: i for i, f in enumerate(nodes)}
+        nf = len(nodes)
+
+        obs_fid = np.append(self.arch_obs_fid, self.obs_fid)
+        obs_cam = np.append(self.arch_obs_cam, self.obs_cam)
+        obs_lid = np.append(self.arch_obs_lid, self.obs_lid)
+        obs_uv = np.vstack([self.arch_obs_uv, self.obs_uv])
+        obs_sigma = np.append(self.arch_obs_sigma, self.obs_sigma)
+        live = np.isin(obs_fid, np.fromiter(fid2slot, np.int64, nf))
+        obs_fid, obs_cam, obs_lid = obs_fid[live], obs_cam[live], obs_lid[live]
+        obs_uv, obs_sigma = obs_uv[live], obs_sigma[live]
+
+        # landmarks (live or archived) with at least two observations
+        lids, counts = np.unique(obs_lid, return_counts=True)
+        lid2row, hps = {}, []
+        for lid in lids[counts >= 2].tolist():
+            if lid in self.lm_index:
+                hp = self.hp_W[self.lm_index[lid]]
+            elif lid in self.arch_lm:
+                hp = self.arch_lm[lid]
+            else:
+                continue
+            lid2row[lid] = len(hps)
+            hps.append(hp)
+        nl = len(hps)
+        ok = np.isin(obs_lid, np.fromiter(lid2row, np.int64, nl))
+        obs_fid, obs_cam, obs_lid = obs_fid[ok], obs_cam[ok], obs_lid[ok]
+        obs_uv, obs_sigma = obs_uv[ok], obs_sigma[ok]
+        n_obs = len(obs_fid)
+        if n_obs > 32768:
+            logging.warning("final BA: subsampling %d observations to 32768", n_obs)
+            keep = np.linspace(0, n_obs - 1, 32768).astype(int)
+            obs_fid, obs_cam, obs_lid = obs_fid[keep], obs_cam[keep], obs_lid[keep]
+            obs_uv, obs_sigma = obs_uv[keep], obs_sigma[keep]
+            n_obs = len(obs_fid)
+        if n_obs < 10 or nl < 5:
+            return None
+
+        # IMU links between consecutive nodes whose span the raw samples
+        # cover; odometry edges for the rest
+        imu_links = []  # (slot_a, slot_b, (t0, t1, bg, ba))
+        S_final = 0
+        imu_arrays = self._full_imu_arrays() if use_imu else None
+        if use_imu:
+            t_arr = imu_arrays[0]
+            for a, b in zip(nodes[:-1], nodes[1:]):
+                if a.fid < 0 or b.fid < 0 or len(t_arr) == 0:
+                    continue
+                if t_arr[0] > a.timestamp or t_arr[-1] < b.timestamp:
+                    continue
+                i0 = max(int(np.searchsorted(t_arr, a.timestamp, "right")) - 1, 0)
+                i1 = min(int(np.searchsorted(t_arr, b.timestamp, "left")) + 1, len(t_arr))
+                if i1 - i0 < 2 or i1 - i0 > 4096:
+                    continue
+                imu_links.append((fid2slot[a.fid], fid2slot[b.fid],
+                                  (a.timestamp, b.timestamp, a.sb[3:6], a.sb[6:9])))
+                S_final = max(S_final, i1 - i0)
+        imu_pairs = {(l[0], l[1]) for l in imu_links}
+        connected = {(min(e["i"], e["j"]), max(e["i"], e["j"])) for e in edges}
+        all_edges = list(edges)
+        for a, b in zip(nodes[:-1], nodes[1:]):
+            if (a.fid < 0) != (b.fid < 0):
+                continue
+            if (fid2slot[a.fid], fid2slot[b.fid]) in imu_pairs:
+                continue
+            if (min(a.fid, b.fid), max(a.fid, b.fid)) not in connected:
+                T_ij = se3np.se3_multiply(se3np.se3_inverse(a.T_WS), b.T_WS)
+                all_edges.append(dict(i=a.fid, j=b.fid, T_ij=T_ij, sqrt_info=np.eye(6) * 20.0))
+        all_edges = [e for e in all_edges if e["i"] in fid2slot and e["j"] in fid2slot]
+
+        def bucket(n, base):
+            c = base
+            while c < n:
+                c *= 2
+            return c
+
+        K, L, N = bucket(nf, 16), bucket(nl, 64), bucket(n_obs, 256)
+        R = bucket(len(all_edges), 16)
+        M = bucket(len(imu_links), 8) if imu_links else 1
+
+        T_WS = np.tile(np.array([0, 0, 0, 0, 0, 0, 1.0]), (K, 1))
+        T_WS[:nf] = np.stack([f.T_WS for f in nodes])
+        sb_full = np.zeros((K, 9))
+        sb_full[:nf] = np.stack([f.sb for f in nodes])
+        frame_valid = np.zeros(K, bool)
+        frame_valid[:nf] = True
+        pose_fixed = np.zeros(K, bool)
+        pose_fixed[0] = True  # gauge
+        if node_slice is not None and fix_margin:
+            pose_fixed[:min(fix_margin, nf)] = True
+            pose_fixed[max(nf - fix_margin, 0):nf] = True
+        # IMU-linked frames estimate speed/bias, softly anchored at the
+        # current values (keeps unobserved bias directions bounded)
+        sb_fixed = np.ones(K, bool)
+        sb_prior = np.zeros((K, 9))
+        sb_prior_si = np.tile(np.eye(9), (K, 1, 1))
+        sb_prior_valid = np.zeros(K, bool)
+        sb_si = np.diag(np.concatenate([np.full(3, 1.0), np.full(3, 1.0 / 0.05),
+                                        np.full(3, 1.0 / 0.2)]))
+        for sa, sb_, _ in imu_links:
+            for slot in (sa, sb_):
+                sb_fixed[slot] = False
+                sb_prior[slot] = sb_full[slot]
+                sb_prior_si[slot] = sb_si
+                sb_prior_valid[slot] = True
+
+        hp = np.tile(np.array([0, 0, 0, 1.0]), (L, 1))
+        hp[:nl] = np.stack(hps)
+        lm_valid = np.zeros(L, bool)
+        lm_valid[:nl] = True
+
+        node_fids = np.fromiter(fid2slot, np.int64, nf)
+        order = np.argsort(node_fids)
+        o_frame = np.zeros(N, np.int64)
+        o_frame[:n_obs] = order[np.searchsorted(node_fids[order], obs_fid)]
+        row_lids = np.fromiter(lid2row, np.int64, nl)
+        lorder = np.argsort(row_lids)
+        o_lm = np.zeros(N, np.int64)
+        o_lm[:n_obs] = lorder[np.searchsorted(row_lids[lorder], obs_lid)]
+        o_cam = np.zeros(N, np.int64)
+        o_cam[:n_obs] = obs_cam
+        o_uv = np.zeros((N, 2))
+        o_uv[:n_obs] = obs_uv
+        o_si = np.ones(N)
+        o_si[:n_obs] = 1.0 / obs_sigma
+        o_valid = np.zeros(N, bool)
+        o_valid[:n_obs] = True
+
+        r_i = np.zeros(R, np.int64)
+        r_j = np.zeros(R, np.int64)
+        r_T = np.tile(np.array([0, 0, 0, 0, 0, 0, 1.0]), (R, 1))
+        r_si = np.tile(np.eye(6), (R, 1, 1))
+        r_valid = np.zeros(R, bool)
+        for m, e in enumerate(all_edges):
+            r_i[m], r_j[m] = fid2slot[e["i"]], fid2slot[e["j"]]
+            r_T[m], r_si[m], r_valid[m] = e["T_ij"], e["sqrt_info"], True
+
+        dev, dtype = self.device, self.cfg.dtype
+        p = prb.empty_problem(K=K, L=L, C=self.C, N=N, M=M, R=R, dtype=dtype, device=dev)
+        imu_i = np.zeros(M, np.int64)
+        imu_j = np.zeros(M, np.int64)
+        imu_valid = np.zeros(M, bool)
+        imu_pre, imu_si = p.imu_pre, p.imu_sqrt_info
+        if imu_links:
+            for m, (sa, sb_, _) in enumerate(imu_links):
+                imu_i[m], imu_j[m], imu_valid[m] = sa, sb_, True
+            S_cap = 128
+            while S_cap < S_final:
+                S_cap *= 2
+            imu_pre, imu_si = self._preintegrate_batch(
+                [l[2] for l in imu_links], M, S=S_cap, imu_arrays=imu_arrays)
+
+        F = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)  # noqa: E731
+        I = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        p = p._replace(
+            T_WS=F(T_WS), sb=F(sb_full), frame_valid=I(frame_valid),
+            pose_fixed=I(pose_fixed), sb_fixed=I(sb_fixed),
+            sb_prior=F(sb_prior), sb_prior_sqrt_info=F(sb_prior_si),
+            sb_prior_valid=I(sb_prior_valid),
+            imu_i=I(imu_i), imu_j=I(imu_j), imu_pre=imu_pre, imu_sqrt_info=imu_si,
+            imu_valid=I(imu_valid), T_SC=F(self.T_SC), hp_W=F(hp), lm_valid=I(lm_valid),
+            obs_frame=I(o_frame), obs_cam=I(o_cam), obs_lm=I(o_lm), obs_uv=F(o_uv),
+            obs_sqrt_info=F(o_si), obs_valid=I(o_valid),
+            rel_i=I(r_i), rel_j=I(r_j), rel_T=F(r_T), rel_sqrt_info=F(r_si),
+            rel_valid=I(r_valid),
+        )
+        aux = dict(fid2slot=fid2slot, lid2row=lid2row, fids=[f.fid for f in nodes])
+        return p, aux
+
+    def _full_ba_run_fn(self, p, iterations: int):
+        """The whole-history LM solve of a `_full_problem`: (problem, cost)."""
+        cfg = gn.SolverConfig(max_iterations=iterations, imu_params=self.cfg.imu)
+        return gn.optimize(p, self.cams, cfg)
+
+    def apply_full_ba_result(self, aux, p_opt, backlog: bool = True) -> bool:
+        """Write a full-BA solution back: node poses through
+        `apply_pose_graph_result` (with its backlog replay), speed/bias of
+        the IMU-linked nodes, and every landmark of the problem (live rows
+        or archive snapshots).  Pass backlog=False for segments."""
+        nf = len(aux["fids"])
+        T_out = p_opt.T_WS.cpu().numpy().astype(np.float64)
+        if not np.all(np.isfinite(T_out[:nf])):
+            return False
+        self.apply_pose_graph_result(aux["fids"], T_out[:nf], backlog=backlog)
+        sb_out = p_opt.sb.cpu().numpy().astype(np.float64)
+        sb_fixed = p_opt.sb_fixed.cpu().numpy()
+        window = {f.fid: f for f in self.frames}
+        for fid, slot in aux["fid2slot"].items():
+            fr = self.archive_frames.get(fid) or window.get(fid)
+            if fr is not None and not sb_fixed[slot]:
+                fr.sb = sb_out[slot].copy()
+        hp_out = p_opt.hp_W.cpu().numpy().astype(np.float64)
+        for lid, row in aux["lid2row"].items():
+            if lid in self.lm_index:
+                self.hp_W[self.lm_index[lid]] = hp_out[row]
+            else:
+                self.arch_lm[lid] = hp_out[row]
+        return True
+
+    def final_ba(self, iterations: int = 15, redo_imu: bool = True,
+                 max_nodes: int = 128) -> float:
+        """Full-batch bundle adjustment over the whole history: archived
+        observations re-expanded, every keyframe pose free, IMU links
+        re-propagated from the raw samples, one joint solve written back.
+
+        Beyond `max_nodes` keyframes it alternates a global pose-graph solve
+        (which distributes the loop corrections) with overlapping exact-BA
+        segments of `max_nodes` nodes anchored at their margins, until the
+        pose graph moves no node by 1 cm (at most 3 sweeps), and ends on a
+        pose-graph polish.  Returns the final cost."""
+        nodes, _ = self.pose_graph()
+        n_nodes = len(nodes)
+        if n_nodes <= max_nodes:
+            out = self._full_problem(use_imu=redo_imu)
+            if out is None:
+                return 0.0
+            p, aux = out
+            p_opt, cost = self._full_ba_run_fn(p, iterations)
+            self.apply_full_ba_result(aux, p_opt)
+            return float(cost)
+
+        def _pg_stage() -> float:
+            """Global pose-graph solve and writeback; returns the largest
+            node movement (m)."""
+            snap = self.snapshot_pose_graph()
+            moved = 0.0
+            if snap is not None:
+                if snap["T"].shape[0] > 256:
+                    raise NotImplementedError(
+                        "the matrix-free pose-graph solver for more than 256 "
+                        "keyframes is not ported yet")
+                T_opt, _ = posegraph.optimize_pose_graph(
+                    snap["T"], snap["fixed"], snap["ei"], snap["ej"], snap["eT"],
+                    snap["eS"], iterations=iterations, dtype=self.cfg.dtype,
+                    device=self.device,
+                )
+                if np.all(np.isfinite(T_opt)):
+                    moved = float(np.max(np.linalg.norm(T_opt[:, :3] - snap["T"][:, :3],
+                                                        axis=1)))
+                    self.apply_pose_graph_result(snap["fids"], T_opt)
+            return moved
+
+        cost = 0.0
+        for sweep in range(3):
+            moved = _pg_stage()
+            if sweep > 0 and moved < 0.01:
+                return cost
+            step = max(max_nodes * 3 // 4, 1)
+            margin = max(max_nodes // 16, 2)
+            cost = 0.0
+            i0 = 0
+            while i0 < n_nodes:
+                i1 = min(i0 + max_nodes, n_nodes)
+                out = self._full_problem(use_imu=redo_imu, node_slice=(i0, i1),
+                                         fix_margin=margin if i0 > 0 else 0)
+                if out is not None:
+                    p, aux = out
+                    p_opt, seg_cost = self._full_ba_run_fn(p, iterations)
+                    if np.isfinite(float(seg_cost)):
+                        # only the newest segment replays the backlog
+                        self.apply_full_ba_result(aux, p_opt, backlog=i1 >= n_nodes)
+                        cost += float(seg_cost)
+                    else:
+                        logging.warning("final BA: segment [%d,%d) sweep %d diverged "
+                                        "(cost %s); writeback skipped", i0, i1, sweep + 1,
+                                        seg_cost)
+                if i1 >= n_nodes:
+                    break
+                i0 += step
+        _pg_stage()
+        return cost
 
     # ------------------------------------------------------------- outputs
     def get_state(self, fid: Optional[int] = None) -> FrameState:
         return self.frames[-1] if fid is None else self._frame_by_id(fid)
 
+    def trajectory(self):
+        return {f.fid: (f.timestamp, f.T_WS.copy()) for f in self.frames}
+
+    def full_trajectory(self):
+        """Time-ordered (timestamps, T_WS) over archived and window frames."""
+        frames = sorted(list(self.archive_frames.values()) + self.frames,
+                        key=lambda f: f.timestamp)
+        return (
+            np.array([f.timestamp for f in frames]),
+            np.stack([f.T_WS for f in frames]) if frames else np.zeros((0, 7)),
+        )
 

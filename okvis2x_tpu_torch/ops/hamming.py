@@ -9,7 +9,10 @@ Dispatch: a CUDA tensor goes to the kernel; if the kernel cannot be built or
 launched the error is raised.  A CPU tensor goes to the plain version.  The
 kernel is compiled with ``nvcc`` for ``sm_90a`` on first use into
 ``build/okvis2x_tpu_torch/`` at the root of the checkout and loaded with
-ctypes.  ``hamming_matrix_packed.launches`` counts kernel launches.
+ctypes.  ``hamming_matrix_packed.launches`` counts kernel launches and
+``hamming_matrix_packed.site_launches`` counts them by calling site
+("assoc": per-frame association, "bow": vocabulary descent, "lc_match":
+loop-closure matching).
 """
 
 from __future__ import annotations
@@ -106,8 +109,10 @@ def hamming_matrix_plain(packed_q: torch.Tensor, packed_d: torch.Tensor) -> torc
     return out
 
 
-def hamming_matrix_packed(packed_q: torch.Tensor, packed_d: torch.Tensor) -> torch.Tensor:
-    """(NQ, ND) int32 Hamming distances of packed descriptors; any NQ, ND."""
+def hamming_matrix_packed(packed_q: torch.Tensor, packed_d: torch.Tensor,
+                          site: str = "assoc") -> torch.Tensor:
+    """(NQ, ND) int32 Hamming distances of packed descriptors; any NQ, ND.
+    `site` names the caller in the per-site launch counts."""
     _check_packed(packed_q, "packed_q")
     _check_packed(packed_d, "packed_d")
     if packed_q.device != packed_d.device:
@@ -130,10 +135,18 @@ def hamming_matrix_packed(packed_q: torch.Tensor, packed_d: torch.Tensor) -> tor
         msg = lib.okvis_cuda_error_string(err).decode()
         raise RuntimeError(f"hamming kernel launch failed: {msg} ({err})")
     hamming_matrix_packed.launches += 1
+    by_site = hamming_matrix_packed.site_launches
+    by_site[site] = by_site.get(site, 0) + 1
     return out
 
 
+def reset_launch_counts():
+    hamming_matrix_packed.launches = 0
+    hamming_matrix_packed.site_launches.clear()
+
+
 hamming_matrix_packed.launches = 0
+hamming_matrix_packed.site_launches = {}
 
 
 def best_matches_packed(packed_q, packed_d, max_dist=60):

@@ -10,16 +10,29 @@ Stages per frame:
      the last keyframe; every Hamming distance comes from the packed
      descriptor kernel (``ops.hamming``);
   4. keyframe decision by disc-coverage overlap (host);
-  5. gated window solve + marginalisation (estimator).
+  5. gated window solve (estimator);
+  6. synchronous loop closure on keyframes: vocabulary words and a tf-idf
+     query (``frontend/bow.py``), mutual matching against up to three
+     candidates on the Hamming kernel, batched non-central RANSAC
+     (``frontend/ransac.py``), a drift-budget gate, then the loop edge and
+     an in-line pose-graph solve, the candidate held in the window,
+     landmark merges and a window re-solve (estimator);
+  7. marginalisation.
 
-Loop closure, the deferred fused frontend, the pipelined solve, the inline
-pose refinement, semantic weighting and depth input are not part of the
-port yet; enabling them raises ``NotImplementedError``.
+After the last frame, `finish()` and `est.final_ba()` give the refined
+trajectory (`est.full_trajectory()`).
+
+The asynchronous place-recognition worker and background full graph,
+online vocabulary training, relocalisation against loaded maps, the
+deferred fused frontend, the pipelined solve, the inline pose refinement,
+semantic weighting and depth input are not part of the port yet; enabling
+them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -28,8 +41,9 @@ import torch
 from okvis2x_tpu_torch.api import TrackingQuality
 from okvis2x_tpu_torch.cameras import pinhole, pinhole_np
 from okvis2x_tpu_torch.core import se3, se3np
-from okvis2x_tpu_torch.frontend import descriptor, detector, matcher, triangulation
+from okvis2x_tpu_torch.frontend import bow, descriptor, detector, matcher, ransac, triangulation
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, SlidingWindowEstimator
+from okvis2x_tpu_torch.ops import hamming
 from okvis2x_tpu_torch.utils import timing
 
 
@@ -53,21 +67,46 @@ class PipelineConfig:
     quality_lost: float = 0.01
     quality_marginal: float = 0.3
     quality_grid: int = 8
+    # loop closure (synchronous): the shipped vocabulary when vocab_path is
+    # None; candidates are the top BoW retrievals (a third one only above
+    # p_dbow or p_prominence x the retrieval mean), verified by RANSAC with
+    # loop_min_inliers, accepted within drift_percentage of the path since
+    # the candidate, and at most one per loop_cooldown_m of path
+    do_loop_closures: bool = False
+    vocab_path: Optional[str] = None
+    p_dbow: float = 0.4
+    p_prominence: float = 1.15
+    loop_min_gap_s: float = 5.0
+    loop_min_inliers: int = 15
+    loop_cooldown_m: float = 3.0
+    drift_percentage: float = 1.35  # % of the distance travelled
+    num_loopclosure_frames: int = 3  # held in the window for merging
     # features of the JAX package that the port does not have yet: each
     # must stay at its "off" value
-    do_loop_closures: bool = False
+    async_place_recognition: bool = True
+    async_loop_closure: bool = False
     pose_refine: bool = False
     pipelined_solve: bool = False
     deferred_frontend: bool = False
     segmentation: str = "off"
 
     def check_ported(self):
-        for name in ("do_loop_closures", "pose_refine", "pipelined_solve",
-                     "deferred_frontend"):
+        for name in ("pose_refine", "pipelined_solve", "deferred_frontend"):
             if getattr(self, name):
                 raise NotImplementedError(f"PipelineConfig.{name} is not ported yet")
         if self.segmentation != "off":
             raise NotImplementedError("semantic keypoint weighting is not ported yet")
+        if self.do_loop_closures:
+            if self.async_place_recognition:
+                raise NotImplementedError(
+                    "the asynchronous place-recognition worker is not ported yet: "
+                    "set async_place_recognition=False")
+            if self.async_loop_closure:
+                raise NotImplementedError(
+                    "the background full-graph optimiser is not ported yet: "
+                    "set async_loop_closure=False")
+            if self.vocab_path == "":
+                raise NotImplementedError("online vocabulary training is not ported yet")
 
 
 # stereo / motion-stereo initialisations accepted per frame (the first
@@ -115,6 +154,26 @@ class VioPipeline:
         self.lm_desc: Dict[int, np.ndarray] = {}  # lid -> packed descriptor
         self.states_log = []  # (t, T_WS) after each frame
         self.last_quality_fraction = 0.0
+        self.path_length = 0.0
+        self._last_solved_T = None
+
+        # loop closure: keyframe records (descriptors, landmark snapshot,
+        # pose), the vocabulary and its database, held loop-closure frames
+        self.kf_records: Dict[int, dict] = {}
+        self.lc_frames: List[int] = []
+        self.n_loop_closures = 0
+        self.n_landmarks_merged = 0
+        self._lc_last_path = -1e9
+        self.vocab = None
+        self.bow_db = None
+        if cfg.do_loop_closures:
+            path = cfg.vocab_path or bow.DEFAULT_VOCAB
+            if not os.path.exists(path):
+                raise NotImplementedError(
+                    f"vocabulary {path} not found; online vocabulary training is "
+                    "not ported yet")
+            self.vocab = bow.HierVocabulary.load(path, device=self.device)
+            self.bow_db = bow.BowDatabase(k=self.vocab.n_words)
 
     # ---------------------------------------------------------------- stages
     @staticmethod
@@ -489,13 +548,301 @@ class VioPipeline:
             return TrackingQuality.MARGINAL
         return TrackingQuality.GOOD
 
+    # ---------------------------------------------------------- loop closure
+    _LC_MAX_CAND = 3
+
+    def _lm_snapshot(self, fd: FrameData) -> np.ndarray:
+        """(N, 3) world positions of the keypoints' landmarks, NaN where a
+        keypoint has none."""
+        lm_pos = np.full((len(fd.uv), 3), np.nan)
+        for k in np.nonzero(fd.lid >= 0)[0]:
+            lid = fd.lid[k]
+            if lid in self.est.lm_index:
+                hp = self.est.hp_W[self.est.lm_index[lid]]
+                if abs(hp[3]) > 1e-9:
+                    lm_pos[k] = hp[:3] / hp[3]
+        return lm_pos
+
+    def _record_keyframe(self, fid: int, t: float, frame_data: List[FrameData]):
+        """Keep what place recognition needs of a keyframe.  Its descriptors
+        go to the device here, once: the vocabulary descent and every later
+        match against it read them there."""
+        dev = self.device
+        rec = dict(t=t, T_WS=self.est.get_state(fid).T_WS.copy(), path=self.path_length)
+        for c, fd in enumerate(frame_data[:2]):
+            sfx = "" if c == 0 else str(c)
+            rec.update({
+                f"packed{sfx}": fd.packed.copy(), f"valid{sfx}": fd.valid.copy(),
+                f"uv{sfx}": fd.uv.copy(), f"lm_pos{sfx}": self._lm_snapshot(fd),
+                f"lid{sfx}": fd.lid.copy(),
+                f"packed{sfx}_d": torch.as_tensor(np.ascontiguousarray(fd.packed, np.int32),
+                                                  device=dev),
+                f"valid{sfx}_d": torch.as_tensor(fd.valid, device=dev),
+            })
+        self.kf_records[fid] = rec
+
+    def _keyframe_words(self, rec: dict) -> np.ndarray:
+        """Vocabulary words of a record's cam-0 descriptors (kept in it)."""
+        words = bow.assign_packed(rec["packed_d"], rec["valid_d"], self.vocab).cpu().numpy()
+        rec["words"] = words
+        return words
+
+    def _attempt_loop_closure(self, fid: int, t: float) -> bool:
+        """Propose (BoW query + RANSAC) and accept (graph surgery) in line."""
+        rec = self.kf_records[fid]
+        exclude = {f for f, r in self.kf_records.items() if t - r["t"] < self.cfg.loop_min_gap_s}
+        try:
+            cur_p = self.est.get_state(fid).T_WS[:3]
+        except KeyError:
+            cur_p = rec["T_WS"][:3]
+        prop = self._lc_propose(fid, rec, exclude, cur_p)
+        return prop is not None and self._lc_accept(prop)
+
+    def _lc_propose(self, fid: int, rec: dict, exclude: set, cur_p):
+        """Place-recognition proposal: words, BoW query and database add,
+        candidate policy, RANSAC verification.  BoW proposes, geometry
+        decides: the top two retrievals are always verified, a third only
+        when its score clears p_dbow or stands out from the retrieval bulk.
+        Returns a proposal dict or None."""
+        cfg = self.cfg
+        words = self._keyframe_words(rec)
+        res = self.bow_db.query(words, rec["valid"], exclude=exclude, top=8)
+        self.bow_db.add(fid, words, rec["valid"])
+        if not res:
+            return None
+        bulk = float(np.mean([s for _, s in res]))
+        sel = []
+        for rank, (cf, score) in enumerate(res[:3]):
+            if rank >= 2 and not (score >= cfg.p_dbow
+                                  or (score >= cfg.p_prominence * bulk and score >= 0.05)):
+                continue
+            cand = self.kf_records.get(cf)
+            if cand is not None:
+                sel.append((cf, cand))
+        if not sel:
+            return None
+        ver = self._geometric_verify_batch(fid, rec, sel, cur_p)
+        if ver is None:
+            return None
+        cand_fid, T_WS_est, n_inl, pairs = ver
+        cand = next(cd for cf, cd in sel if cf == cand_fid)
+        # the candidate pose of the epoch the RANSAC ran in
+        return dict(fid=fid, cand_fid=cand_fid, T_WS_est=T_WS_est, n_inl=n_inl,
+                    pairs=pairs, cand_T_WS=np.asarray(cand["T_WS"]).copy())
+
+    def _lc_accept(self, prop: dict) -> bool:
+        """Drift-budget gate against the current estimate, then the loop
+        edge and in-line pose-graph solve, the held candidate frame and the
+        landmark merges."""
+        cfg = self.cfg
+        fid, cand_fid = prop["fid"], prop["cand_fid"]
+        rec = self.kf_records.get(fid)
+        cand = self.kf_records.get(cand_fid)
+        if rec is None or cand is None:
+            return False
+        T_cand_cur = se3np.se3_multiply(se3np.se3_inverse(prop["cand_T_WS"]),
+                                        np.asarray(prop["T_WS_est"]))
+        try:
+            T_WS_cur = self.est.get_state(fid).T_WS
+        except KeyError:
+            T_WS_cur = rec["T_WS"]
+        T_pred = se3np.se3_multiply(np.asarray(cand["T_WS"]), T_cand_cur)
+        correction = np.linalg.norm(T_pred[:3] - T_WS_cur[:3])
+        dist = max(self.path_length - cand["path"], 0.5)
+        if correction > cfg.drift_percentage / 100.0 * dist + 0.2:
+            return False
+        sqrt_info = np.eye(6) * (10.0 * np.sqrt(prop["n_inl"]))
+        if not self.est.close_loop(fid, cand_fid, T_cand_cur, sqrt_info):
+            return False
+        self._hold_loopclosure_frame(cand_fid)
+        self._merge_loop_landmarks(rec, cand, prop["pairs"])
+        self.n_loop_closures += 1
+        self._lc_last_path = self.path_length
+        self._refresh_kf_poses()
+        return True
+
+    def _hold_loopclosure_frame(self, cand_fid: int):
+        """Bring the recognised keyframe and its landmarks back into the
+        window, holding at most num_loopclosure_frames of them.  The restore
+        budget is bounded by the observation headroom and a quarter of the
+        landmark table, so old-map landmarks cannot starve the frontier."""
+        if cand_fid in self.lc_frames:
+            return
+        ecfg = self.est.cfg
+        budget = max(64, min(ecfg.cap_obs // 8, ecfg.cap_landmarks // 4))
+        rec = self.kf_records.get(cand_fid)
+        if rec is not None:
+            for key_l, key_p in (("lid", "packed"), ("lid1", "packed1")):
+                lid_arr = rec.get(key_l)
+                if lid_arr is None:
+                    continue
+                for k in np.nonzero(lid_arr >= 0)[0]:
+                    self.lm_desc.setdefault(int(lid_arr[k]), rec[key_p][k])
+        if self.est.add_loopclosure_frame(cand_fid, max_restore=budget):
+            self.lc_frames.append(cand_fid)
+            while len(self.lc_frames) > self.cfg.num_loopclosure_frames:
+                self.est.remove_loopclosure_frame(self.lc_frames.pop(0))
+
+    def _merge_loop_landmarks(self, rec: dict, cand: dict, pairs) -> int:
+        """Merge current landmarks into the re-observed old ones along the
+        RANSAC inliers (cam, current keypoint, candidate keypoint): the old
+        id survives."""
+        merged = 0
+        for c, k_cur, k_cand in pairs:
+            key = "lid" if c == 0 else f"lid{c}"
+            cand_lid, cur_lid = cand.get(key), rec.get(key)
+            if cand_lid is None or cur_lid is None:
+                continue
+            lo, ln = int(cand_lid[k_cand]), int(cur_lid[k_cur])
+            if lo < 0 or ln < 0 or lo == ln:
+                continue
+            if self.est.merge_landmarks(lo, ln):
+                merged += 1
+        self.n_landmarks_merged += merged
+        return merged
+
+    def _refresh_kf_poses(self):
+        """After a correction, move every record's pose and landmark
+        snapshot rigidly by its keyframe's pose change, so later loop edges
+        do not embed the correction as error."""
+        for f2, r2 in self.kf_records.items():
+            st = self.est.archive_frames.get(f2)
+            if st is None:
+                try:
+                    st = self.est.get_state(f2)
+                except KeyError:
+                    continue
+            T_old = np.asarray(r2["T_WS"])
+            T_new = st.T_WS.copy()
+            if np.allclose(T_old, T_new, atol=1e-12):
+                continue
+            dT = se3np.se3_multiply(T_new, se3np.se3_inverse(T_old))
+            R = se3np.quat_to_matrix(dT[3:7])
+            for key in ("lm_pos", "lm_pos1"):
+                lm = r2.get(key)
+                if lm is None:
+                    continue
+                ok = np.isfinite(lm[:, 0])
+                lm[ok] = lm[ok] @ R.T + dT[:3]
+            r2["T_WS"] = T_new
+
+    def _lc_cam_keys(self, rec: dict):
+        return [0, 1] if "packed1" in rec else [0]
+
+    def _lc_match(self, rec: dict, sel):
+        """Mutual best matching of the query keyframe against up to
+        _LC_MAX_CAND candidate records, per camera: ONE kernel launch
+        against the candidates concatenated along the database axis, then
+        the row and column argmins per candidate block.  Invalid rows and
+        columns, and empty candidate slots, are masked to 1e9 as in the JAX
+        package.  Returns numpy (idx (B, C, N), ok (B, C, N))."""
+        dev = self.device
+        Bc, N = self._LC_MAX_CAND, self.cfg.max_keypoints
+        thr = float(self.cfg.matching_threshold)
+        cams = self._lc_cam_keys(rec)
+        zp = torch.zeros((N, hamming.WORDS), dtype=torch.int32, device=dev)
+        zv = torch.zeros((N,), dtype=torch.bool, device=dev)
+        big = torch.tensor(1e9, dtype=torch.float32, device=dev)
+        ar = torch.arange(N, device=dev)
+        mis, oks = [], []
+        for c in cams:
+            sfx = "" if c == 0 else str(c)
+            q, qv = rec[f"packed{sfx}_d"], rec[f"valid{sfx}_d"]
+            db, dv = [], []
+            for b in range(Bc):
+                cand = sel[b][1] if b < len(sel) else {}
+                db.append(cand.get(f"packed{sfx}_d", zp))
+                dv.append(cand.get(f"valid{sfx}_d", zv))
+            D = hamming.hamming_matrix_packed(q, torch.cat(db), site="lc_match")
+            D = D.to(torch.float32)
+            dv = torch.stack(dv)  # (B, M)
+            D = torch.where(qv[:, None], D, big)
+            D = torch.where(dv.reshape(1, -1), D, big)
+            D = D.reshape(N, Bc, N).permute(1, 0, 2)  # (B, N, M)
+            md, mi = torch.min(D, dim=-1)
+            back = torch.argmin(D, dim=-2)  # (B, M)
+            mutual = torch.gather(back, 1, mi) == ar
+            ok = mutual & (md <= thr) & qv[None] & torch.gather(dv, 1, mi)
+            mis.append(mi)
+            oks.append(ok)
+        return (torch.stack(mis, 1).cpu().numpy(), torch.stack(oks, 1).cpu().numpy())
+
+    def _geometric_verify_batch(self, fid: int, rec: dict, sel, cur_p):
+        """Verify up to _LC_MAX_CAND candidates: packed matching, then ONE
+        batched non-central RANSAC of the rig's rays (body frame, per-camera
+        origins) against each candidate's landmark snapshot, depth prior
+        from the current position.  The candidate with the most inliers
+        wins.  Returns (cand_fid, T_WS in the candidate's epoch, inliers,
+        inlier (cam, cur kp, cand kp) pairs) or None.
+
+        Hypotheses are drawn from a torch.Generator seeded with the frame id
+        (the JAX package seeds jax.random with it; the two streams differ)."""
+        cfg = self.cfg
+        Bc = self._LC_MAX_CAND
+        cams = self._lc_cam_keys(rec)
+        mi, ok = self._lc_match(rec, sel)
+        cap = 2 * cfg.max_keypoints
+        rays_b = np.zeros((Bc, cap, 3))
+        orig_b = np.zeros((Bc, cap, 3))
+        pts_b = np.zeros((Bc, cap, 3))
+        mask_b = np.zeros((Bc, cap), bool)
+        depth_b = np.ones((Bc, cap))
+        pairs_b = [[] for _ in range(Bc)]
+        for b, (_cf, cand) in enumerate(sel[:Bc]):
+            rays_l, orig_l, pts_l, pair_l = [], [], [], []
+            for c, ci in enumerate(cams):
+                sfx = "" if ci == 0 else str(ci)
+                lk = f"lm_pos{sfx}"
+                if lk not in cand:
+                    continue
+                has_lm = np.isfinite(cand[lk][:, 0])
+                keep = np.nonzero(ok[b, c] & has_lm[mi[b, c]])[0]
+                if len(keep) == 0:
+                    continue
+                rays_C, okp = pinhole_np.back_project_unit(self.np_cameras[ci],
+                                                           rec[f"uv{sfx}"][keep])
+                keep, rays_C = keep[okp], rays_C[okp]
+                R_SC = se3np.quat_to_matrix(self.T_SC[ci][3:7])
+                rays_l.append(rays_C @ R_SC.T)
+                orig_l.append(np.tile(self.T_SC[ci][:3], (len(keep), 1)))
+                pts_l.append(cand[lk][mi[b, c][keep]])
+                pair_l.extend((ci, int(kc), int(kd)) for kc, kd in zip(keep, mi[b, c][keep]))
+            if len(pair_l) < cfg.loop_min_inliers:
+                continue
+            n = min(len(pair_l), cap)
+            rays_b[b, :n] = np.concatenate(rays_l)[:n]
+            orig_b[b, :n] = np.concatenate(orig_l)[:n]
+            p3 = np.concatenate(pts_l)[:n]
+            pts_b[b, :n] = p3
+            mask_b[b, :n] = True
+            depth_b[b, :n] = np.linalg.norm(p3 - cur_p, axis=-1)
+            pairs_b[b] = pair_l[:n]
+        if not mask_b.any():
+            return None
+        dev, dtype = self.device, self.est.cfg.dtype
+        F = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)  # noqa: E731
+        res = ransac.absolute_pose_noncentral(
+            F(rays_b), F(orig_b), F(pts_b), torch.as_tensor(mask_b, device=dev), F(depth_b),
+            n_hyp=512, generator=torch.Generator().manual_seed(int(fid)),
+        )
+        n_inl_b = res.num_inliers.cpu().numpy()
+        best = int(np.argmax(n_inl_b))
+        if not pairs_b[best] or int(n_inl_b[best]) < cfg.loop_min_inliers:
+            return None
+        inl = res.inliers[best].cpu().numpy()[: len(pairs_b[best])]
+        pairs = [pairs_b[best][i] for i in np.nonzero(inl)[0]]
+        T = res.T[best].cpu().numpy().astype(np.float64)
+        return sel[best][0], T, int(n_inl_b[best]), pairs
+
     # ------------------------------------------------------------ frame loop
     def add_imu_measurement(self, t, gyr, acc):
         self.est.add_imu_measurement(t, gyr, acc)
 
-    def _finish_frame(self, fid: int):
-        """Post-solve stages: descriptor refresh, marginalisation, pruning
-        of dead per-frame data."""
+    def _finish_frame(self, fid: int, t: float, is_kf: bool) -> bool:
+        """Post-solve stages: descriptor refresh, path length, loop closure
+        on keyframes (then a window re-solve), marginalisation, release of
+        held loop-closure frames the window has moved past, pruning of dead
+        per-frame data.  Returns whether a loop closed."""
         est = self.est
         frame_data = self.frames.get(fid)
         if frame_data is not None:
@@ -503,11 +850,43 @@ class VioPipeline:
             for fd in frame_data:
                 for k in np.nonzero(fd.lid >= 0)[0]:
                     self.lm_desc[fd.lid[k]] = fd.packed[k]
+        f = est.get_state(fid)
+        if self._last_solved_T is not None:
+            self.path_length += float(np.linalg.norm(f.T_WS[:3] - self._last_solved_T[:3]))
+        self._last_solved_T = f.T_WS.copy()
+
+        looped = False
+        if is_kf and self.cfg.do_loop_closures and frame_data is not None:
+            # in the cooldown after a closure keyframes are recorded and
+            # indexed, but not queried
+            in_cooldown = self.path_length - self._lc_last_path < self.cfg.loop_cooldown_m
+            with timing.Timer("2.8 LoopClosure"):
+                self._record_keyframe(fid, t, frame_data)
+                if not in_cooldown:
+                    looped = self._attempt_loop_closure(fid, t)
+                else:
+                    rec = self.kf_records[fid]
+                    self.bow_db.add(fid, self._keyframe_words(rec), rec["valid"])
+        if looped:
+            est.optimise()
+
         with timing.Timer("2.9 Marginalise"):
             est.marginalise()
+        # a held frame pins its restored observations and landmarks: once
+        # it shares fewer than 5 landmarks with the current frame it goes
+        # back to the archive
+        if self.lc_frames:
+            cur_lids = np.unique(est.obs_lid[est.obs_fid == fid])
+            for old_fid in list(self.lc_frames):
+                m_lc = est.obs_fid == old_fid
+                shared = int(np.isin(est.obs_lid[m_lc], cur_lids).sum()) if m_lc.any() else 0
+                if shared < 5:
+                    self.lc_frames.remove(old_fid)
+                    est.remove_loopclosure_frame(old_fid)
         live = {fr.fid for fr in est.frames}
         self.frames = {k: v for k, v in self.frames.items() if k in live}
         self.lm_desc = {l: d for l, d in self.lm_desc.items() if l in est.lm_index}
+        return looped
 
     def process_frame(self, t: float, images: List[np.ndarray], depth_images=None):
         if depth_images is not None:
@@ -530,11 +909,19 @@ class VioPipeline:
         gate_px = self.cfg.chi2_px * est.cfg.keypoint_sigma_px * 3
         with timing.Timer("2.6 OptimiseGated"):
             est.optimise_gated(fid, gate_px)
-        self._finish_frame(fid)
+        looped = self._finish_frame(fid, t, is_kf)
         f = est.get_state(fid)
         self.states_log.append((t, f.T_WS.copy()))
         return dict(
             fid=fid, is_keyframe=is_kf, keyframe_fid=fid if is_kf else None,
             n_map=n_map, n_stereo=n_stereo, n_motion=n_motion, T_WS=f.T_WS.copy(),
-            loop_closure=False, tracking_quality=quality,
+            loop_closure=looped, tracking_quality=quality,
         )
+
+    def load_component(self, path: str, fixed: bool = True) -> bool:
+        raise NotImplementedError("multi-session relocalisation is not ported yet")
+
+    def finish(self):
+        """Dataset end.  The synchronous path keeps no solve, recognition
+        result or background optimisation in flight, so there is nothing to
+        collect; `est.final_ba()` may follow."""

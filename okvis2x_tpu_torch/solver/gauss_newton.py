@@ -101,17 +101,29 @@ def _check_ported(p: BAProblem):
 # ---------------------------------------------------------------------------
 
 
-def _frame_rows(p: BAProblem, blocks) -> torch.Tensor:
-    """Dense Jacobian rows (n, r, P) from per-frame (J (n, r, 15), frame
-    index (n,)) blocks; blocks landing on the same frame add up."""
-    J0 = blocks[0][0]
-    n, r = J0.shape[:2]
-    rows = torch.zeros((n, r, p.P), dtype=J0.dtype, device=J0.device)
-    cols15 = torch.arange(15, device=J0.device)
-    for J, idx in blocks:
-        cols = (idx[:, None] * 15 + cols15)[:, None, :].expand(n, r, 15)
-        rows.scatter_add_(2, cols, J)
-    return rows
+def _accumulate_blocks(H: torch.Tensor, b: torch.Tensor, r: torch.Tensor, blocks,
+                       valid: torch.Tensor):
+    """Add a factor family given as per-frame Jacobian blocks to the frame
+    normal equations in place: H += J^T J, b -= J^T r, with J the rows
+    (n, d, P) that the blocks [(J (n, d, 15), frame index (n,)), ...] span
+    (blocks on the same frame add up).  Block products instead of the dense
+    rows keep a pose graph of hundreds of nodes at O(n) work."""
+    m = valid.to(r.dtype)
+    r = r * m[:, None]
+    ar = torch.arange(15, device=r.device)
+    n = r.shape[0]
+    for Ja, ia in blocks:
+        Ja = Ja * m[:, None, None]
+        rows = ia[:, None] * 15 + ar
+        b.index_add_(0, rows.reshape(-1), -torch.einsum("nri,nr->ni", Ja, r).reshape(-1))
+        for Jb, ib in blocks:
+            Hab = torch.einsum("nri,nrj->nij", Ja, Jb * m[:, None, None])
+            cols = ib[:, None] * 15 + ar
+            H.index_put_(
+                (rows[:, :, None].expand(n, 15, 15).reshape(-1),
+                 cols[:, None, :].expand(n, 15, 15).reshape(-1)),
+                Hab.reshape(-1), accumulate=True,
+            )
 
 
 def _pad15(J: torch.Tensor, col0: int) -> torch.Tensor:
@@ -164,7 +176,7 @@ def _linearize_imu(p: BAProblem, cfg: SolverConfig):
     r, Ji, Jj = vmap(one)(
         p.T_WS[i], p.sb[i], p.T_WS[j], p.sb[j], p.imu_pre, p.imu_sqrt_info
     )
-    return r, _frame_rows(p, [(Ji, i), (Jj, j)]), p.imu_valid
+    return r, [(Ji, i), (Jj, j)], p.imu_valid
 
 
 def _linearize_priors(p: BAProblem):
@@ -181,10 +193,9 @@ def _linearize_priors(p: BAProblem):
 
     ks = torch.arange(p.K, device=dev)
     r_pp, Jp = vmap(pose_one)(p.T_WS, p.pose_prior_T, p.pose_prior_sqrt_info)
-    J_pp = _frame_rows(p, [(_pad15(Jp, 0), ks)])
     r_sb = priors.speed_bias_prior_residual(p.sb_prior, p.sb, p.sb_prior_sqrt_info)
-    J_sb = _frame_rows(p, [(_pad15(p.sb_prior_sqrt_info, 6), ks)])
-    return (r_pp, J_pp, p.pose_prior_valid), (r_sb, J_sb, p.sb_prior_valid)
+    return ((r_pp, [(_pad15(Jp, 0), ks)], p.pose_prior_valid),
+            (r_sb, [(_pad15(p.sb_prior_sqrt_info, 6), ks)], p.sb_prior_valid))
 
 
 def _so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
@@ -234,7 +245,7 @@ def _linearize_rel(p: BAProblem, cfg: SolverConfig):
         r = r * sw[:, None]
         Ji = Ji * sw[:, None, None]
         Jj = Jj * sw[:, None, None]
-    return r, _frame_rows(p, [(_pad15(Ji, 0), i), (_pad15(Jj, 0), j)]), p.rel_valid
+    return r, [(_pad15(Ji, 0), i), (_pad15(Jj, 0), j)], p.rel_valid
 
 
 class Linearization(NamedTuple):
@@ -285,23 +296,17 @@ def linearize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Lineariz
         0, p.obs_lm, Wn
     )
 
-    # priors, IMU links and relative-pose edges: masked, stacked, one product
-    (r_pp, J_pp, v_pp), (r_sb, J_sb, v_sb) = _linearize_priors(p)
-    fams = [(r_pp, J_pp, v_pp), (r_sb, J_sb, v_sb)]
+    # priors, IMU links and relative-pose edges: per-frame blocks added to
+    # the frame system (the columns of frozen parameters are cleared by the
+    # gauge fixing below)
+    fams = list(_linearize_priors(p))
     if p.imu_i.shape[0]:
         fams.append(_linearize_imu(p, cfg))
     if p.rel_i.shape[0]:
         fams.append(_linearize_rel(p, cfg))
-    rs, Js = [], []
-    for r_, J_, v_ in fams:
-        m = v_.to(dtype)
-        rs.append((r_ * m[:, None]).reshape(-1))
-        Js.append((J_ * m[:, None, None]).reshape(-1, P))
-    r_s = torch.cat(rs)
-    J_s = torch.cat(Js) * fmask
-    H_ff = H_ff + J_s.T @ J_s
-    b_f = b_f - J_s.T @ r_s
-    cost = cost + 0.5 * torch.sum(r_s * r_s)
+    for r_, blocks, v_ in fams:
+        _accumulate_blocks(H_ff, b_f, r_, blocks, v_)
+        cost = cost + 0.5 * torch.sum((r_ * v_.to(dtype)[:, None]) ** 2)
 
     # gauge fixing for frozen / invalid parameters
     fb = fmask > 0

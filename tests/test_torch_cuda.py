@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from okvis2x_tpu_torch.frontend import matcher
+from okvis2x_tpu_torch.frontend import bow, matcher
 from okvis2x_tpu_torch.ops import hamming
 
 pytestmark = pytest.mark.cuda
@@ -32,7 +32,8 @@ def words(n, rng):
     return torch.from_numpy(w.view(np.int32))
 
 
-@pytest.mark.parametrize("nq,nd", [(1, 1), (37, 53), (704, 1024), (768, 16384)])
+@pytest.mark.parametrize("nq,nd", [(1, 1), (37, 53), (704, 64), (704, 1024), (704, 2112),
+                                   (704, 4096), (768, 16384)])
 def test_cuda_kernel_matches_plain(cuda, nq, nd):
     rng = np.random.default_rng(nq)
     q, d = words(nq, rng).to(cuda), words(nd, rng).to(cuda)
@@ -59,3 +60,18 @@ def test_cuda_wrapper_rejects_mixed_devices(cuda):
     rng = np.random.default_rng(2)
     with pytest.raises(ValueError):
         hamming.hamming_matrix_packed(words(4, rng).to(cuda), words(4, rng))
+
+
+def test_cuda_vocabulary_words_match_cpu(cuda):
+    """The tree descent on the card (two kernel launches, counted under the
+    "bow" site) gives the CPU's words; invalid rows get word 0."""
+    rng = np.random.default_rng(3)
+    packed = words(704, rng)
+    valid = torch.from_numpy(rng.random(704) > 0.2)
+    vocab = bow.HierVocabulary.load()
+    ref = bow.assign_packed(packed, valid, vocab)
+    n0 = hamming.hamming_matrix_packed.site_launches.get("bow", 0)
+    got = bow.assign_packed(packed.to(cuda), valid.to(cuda), vocab.to(cuda))
+    assert hamming.hamming_matrix_packed.site_launches["bow"] == n0 + 2
+    assert torch.equal(got.cpu(), ref)
+    assert (ref[~valid] == 0).all()
