@@ -4,9 +4,10 @@
   * The vocabulary is a 2-level k-ary tree of binary words (B branches of
     L leaves), kept bit-packed as (B, 12) and (B*L, 12) int32 words, the
     layout of the packed descriptors.
-  * Word assignment is the tree descent on the Hamming kernel: branch
-    distances (N, B), argmin, leaf distances (N, B*L) masked to the chosen
-    branch, argmin.  The JAX package takes the argmax of ±1 dot products;
+  * Word assignment is the tree descent on the fused match kernel: the
+    nearest of the B branches, then the nearest of that branch's L leaves
+    (each row gathers only its own branch's leaves: N x L distances, not
+    N x B*L).  The JAX package takes the argmax of ±1 dot products;
     the dot is BITS - 2 * Hamming, so the argmax of the one is the argmin of
     the other, first index on ties in both.
   * Scoring is tf-idf cosine over a host inverted index (`BowDatabase`,
@@ -62,13 +63,9 @@ def assign_packed(packed: torch.Tensor, valid: torch.Tensor,
                   vocab: HierVocabulary) -> torch.Tensor:
     """(N,) int64 word ids of packed descriptors (N, 12) int32.  Invalid rows
     get word 0, the word the JAX package's zero ±1 row falls to."""
-    d1 = hamming.hamming_matrix_packed(packed, vocab.branches, site="bow")
-    b = torch.argmin(d1, dim=1)
-    d2 = hamming.hamming_matrix_packed(packed, vocab.leaves, site="bow")
-    leaf_branch = torch.arange(d2.shape[1], device=d2.device) // vocab.L
-    d2 = torch.where(leaf_branch[None, :] == b[:, None], d2,
-                     torch.full_like(d2, hamming.DESC_BITS + 1))
-    w = torch.argmin(d2, dim=1)
+    _, b, _ = hamming.hamming_match(packed, None, vocab.branches, None, site="bow")
+    _, w, _ = hamming.hamming_match(packed, None, vocab.leaves, None, seg=vocab.L,
+                                    row_seg=b[:, 0].to(torch.int32), site="bow")
     return torch.where(valid, w, torch.zeros_like(w))
 
 

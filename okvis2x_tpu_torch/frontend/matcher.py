@@ -3,9 +3,11 @@
 
 The JAX package computes Hamming distances as a ±1 bf16 matmul,
 (BITS - a·b) / 2, a TPU formulation.  Here the distances come from the
-packed-descriptor kernel (``ops.hamming``), and the ±1 semantics are kept:
+packed-descriptor kernels (``ops.hamming``), and the ±1 semantics are kept:
 a row that is invalid (a zero ±1 vector) is at distance BITS/2 = 192 from
 everything, and cells outside the `allowed` mask get BITS = 384.
+`match_masked` runs on the fused match kernel; `hamming_matrix` and `match`
+(whose ratio test needs the second-best distance) on the matrix kernel.
 """
 
 from __future__ import annotations
@@ -51,10 +53,16 @@ def match(packed_a, valid_a, packed_b, valid_b, max_dist: float = 60.0,
     return Matches(idx_b=idx, dist=d1, valid=ok)
 
 
-def match_masked(packed_a, valid_a, packed_b, valid_b, allowed, max_dist: float = 60.0) -> Matches:
-    """Best match of each A row restricted to the `allowed` (N, M) mask."""
-    D = hamming_matrix(packed_a, valid_a, packed_b, valid_b)
-    D = torch.where(allowed, D, torch.full_like(D, float(DESC_BITS)))
-    idx = torch.argmin(D, dim=1)
-    d1 = torch.gather(D, 1, idx[:, None])[:, 0]
-    return Matches(idx_b=idx, dist=d1, valid=d1 <= max_dist)
+def match_masked(packed_a, valid_a, packed_b, valid_b, allowed, max_dist: float = 60.0,
+                 mutual: bool = False) -> Matches:
+    """Best match of each A row restricted to the `allowed` (N, M) mask (a
+    contiguous bool tensor), optionally with a mutual check.  Runs on the
+    fused match kernel: the (N, M) distances are never written."""
+    d1, idx, back = hamming.hamming_match(
+        packed_a, valid_a, packed_b, valid_b, allowed=allowed,
+        fill_invalid=DESC_BITS // 2, fill_disallowed=DESC_BITS, want_cols=mutual)
+    idx, d1 = idx[:, 0], d1[:, 0].to(torch.float32)
+    ok = d1 <= max_dist
+    if mutual:
+        ok = ok & (back[idx] == torch.arange(idx.shape[0], device=idx.device))
+    return Matches(idx_b=idx, dist=d1, valid=ok)

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from okvis2x_tpu_torch import default_device
 from okvis2x_tpu_torch.core import se3np
 from okvis2x_tpu_torch.factors import imu_factor
 from okvis2x_tpu_torch.factors.reprojection import residual as reprojection_residual
@@ -112,7 +113,9 @@ _OBS_COLS = ("obs_fid", "obs_cam", "obs_lid", "obs_uv", "obs_sigma", "obs_uid")
 class SlidingWindowEstimator:
     """Keyframe-based sliding-window visual-inertial estimator."""
 
-    def __init__(self, config: EstimatorConfig, cameras, T_SC: np.ndarray, device="cpu"):
+    def __init__(self, config: EstimatorConfig, cameras, T_SC: np.ndarray, device=None):
+        """`device` None is the first CUDA device; without one this raises
+        (pass device="cpu" to run on the CPU)."""
         if config.do_extrinsics or config.do_extrinsics_final_ba:
             raise NotImplementedError("online extrinsics calibration is not ported yet")
         if config.realtime_time_limit:
@@ -120,7 +123,7 @@ class SlidingWindowEstimator:
         if config.cap_icp:
             raise NotImplementedError("live submap ICP factors are not ported yet")
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = default_device() if device is None else torch.device(device)
         self.cams = gn.stack_cameras(cameras).to(self.device, config.dtype)
         self.T_SC = np.asarray(T_SC, dtype=np.float64)  # (C, 7)
         self.C = self.T_SC.shape[0]

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from okvis2x_tpu_torch import default_device
 from okvis2x_tpu_torch.api import TrackingQuality
 from okvis2x_tpu_torch.cameras import pinhole, pinhole_np
 from okvis2x_tpu_torch.core import se3, se3np
@@ -137,12 +138,14 @@ class VioPipeline:
         T_SC: np.ndarray,
         est_config: EstimatorConfig,
         cfg: Optional[PipelineConfig] = None,
-        device="cpu",
+        device=None,
     ):
+        """`device` None is the first CUDA device; without one this raises
+        (pass device="cpu" to run on the CPU)."""
         cfg = cfg or PipelineConfig()
         cfg.check_ported()
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = default_device() if device is None else torch.device(device)
         dtype = est_config.dtype
         self.cameras = [c.to(self.device, dtype) for c in cameras]
         self.np_cameras = [pinhole_np.to_numpy(c) for c in cameras]
@@ -359,12 +362,9 @@ class VioPipeline:
         mo_allowed = (
             (un_c & v0)[:, None] & (B(kf["un"]) & v_k)[None, :] & bool(st["motion_on"])
         )
-        Dm = matcher.hamming_matrix(kp_packs[0], kp_valid[0], P(kf["packs"]), kf_valid)
-        Dm = torch.where(mo_allowed, Dm, torch.full_like(Dm, float(matcher.DESC_BITS)))
-        mo_idx = torch.argmin(Dm, dim=1)
-        d1 = torch.gather(Dm, 1, mo_idx[:, None])[:, 0]
-        back = torch.argmin(Dm, dim=0)
-        mo_val = (d1 <= cfg.stereo_max_dist) & (back[mo_idx] == ar)
+        mmo = matcher.match_masked(kp_packs[0], kp_valid[0], P(kf["packs"]), kf_valid,
+                                   mo_allowed, max_dist=cfg.stereo_max_dist, mutual=True)
+        mo_idx, mo_val = mmo.idx_b, mmo.valid
         T_CkC = F(st["T_CkC"])
         R_k = _f32(se3.quat_to_matrix(se3.se3_q(T_CkC)))
         p_Bk = _f32(se3.se3_t(T_CkC))
@@ -731,19 +731,20 @@ class VioPipeline:
 
     def _lc_match(self, rec: dict, sel):
         """Mutual best matching of the query keyframe against up to
-        _LC_MAX_CAND candidate records, per camera: ONE kernel launch
-        against the candidates concatenated along the database axis, then
-        the row and column argmins per candidate block.  Invalid rows and
-        columns, and empty candidate slots, are masked to 1e9 as in the JAX
-        package.  Returns numpy (idx (B, C, N), ok (B, C, N))."""
+        _LC_MAX_CAND candidate records, per camera: ONE launch of the fused
+        match kernel against the candidates concatenated along the database
+        axis, one segment a candidate, which gives the row argmins per
+        candidate and the column argmins.  Invalid rows and columns, and
+        empty candidate slots, are masked to 1e9 as in the JAX package.
+        Returns numpy (idx (B, C, N), ok (B, C, N))."""
         dev = self.device
         Bc, N = self._LC_MAX_CAND, self.cfg.max_keypoints
         thr = float(self.cfg.matching_threshold)
         cams = self._lc_cam_keys(rec)
         zp = torch.zeros((N, hamming.WORDS), dtype=torch.int32, device=dev)
         zv = torch.zeros((N,), dtype=torch.bool, device=dev)
-        big = torch.tensor(1e9, dtype=torch.float32, device=dev)
         ar = torch.arange(N, device=dev)
+        first = torch.arange(Bc, device=dev)[:, None] * N  # first column of each block
         mis, oks = [], []
         for c in cams:
             sfx = "" if c == 0 else str(c)
@@ -753,16 +754,13 @@ class VioPipeline:
                 cand = sel[b][1] if b < len(sel) else {}
                 db.append(cand.get(f"packed{sfx}_d", zp))
                 dv.append(cand.get(f"valid{sfx}_d", zv))
-            D = hamming.hamming_matrix_packed(q, torch.cat(db), site="lc_match")
-            D = D.to(torch.float32)
             dv = torch.stack(dv)  # (B, M)
-            D = torch.where(qv[:, None], D, big)
-            D = torch.where(dv.reshape(1, -1), D, big)
-            D = D.reshape(N, Bc, N).permute(1, 0, 2)  # (B, N, M)
-            md, mi = torch.min(D, dim=-1)
-            back = torch.argmin(D, dim=-2)  # (B, M)
-            mutual = torch.gather(back, 1, mi) == ar
-            ok = mutual & (md <= thr) & qv[None] & torch.gather(dv, 1, mi)
+            md, mi, back = hamming.hamming_match(
+                q, qv, torch.cat(db), dv.reshape(-1), seg=N, fill_invalid=10 ** 9,
+                want_cols=True, site="lc_match")
+            mi = mi.T - first  # (B, N) columns within each candidate
+            mutual = torch.gather(back.reshape(Bc, N), 1, mi) == ar
+            ok = mutual & (md.T <= thr) & qv[None] & torch.gather(dv, 1, mi)
             mis.append(mi)
             oks.append(ok)
         return (torch.stack(mis, 1).cpu().numpy(), torch.stack(oks, 1).cpu().numpy())

@@ -30,7 +30,8 @@ torch.set_num_threads(1)
 def port_of(jest):
     """A port estimator holding a copy of the JAX estimator's state."""
     cams = [convert.camera(jax.tree.map(np.asarray, jest.cams.at(c))) for c in range(jest.C)]
-    est = SlidingWindowEstimator(convert.estimator_config(jest.cfg), cams, jest.T_SC)
+    est = SlidingWindowEstimator(convert.estimator_config(jest.cfg), cams, jest.T_SC,
+                                 device="cpu")
     return convert.estimator_state(jest, est)
 
 
@@ -280,7 +281,7 @@ def test_lc_match_matches_jax():
                                       jnp.asarray(cand_pk), jnp.asarray(cand_v))
     tpipe = VioPipeline([convert.camera(jax.tree.map(np.asarray, jpipe.cameras[0]))] * 2,
                         jpipe.T_SC, convert.estimator_config(EstimatorConfig()),
-                        convert.pipeline_config(jpipe.cfg))
+                        convert.pipeline_config(jpipe.cfg), device="cpu")
 
     def record(pk, v):
         return {f"{k}{'' if c == 0 else c}_d": torch.as_tensor(x[c])
@@ -313,9 +314,9 @@ def test_unported_loop_closure_features_raise(unported):
     est_cfg = convert.estimator_config(EstimatorConfig())
     with pytest.raises(NotImplementedError):
         if isinstance(unported, dict):
-            VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)))
+            VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
         else:
-            pipe = VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**sync))
+            pipe = VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**sync), device="cpu")
             if unported == "load_component":
                 pipe.load_component("map.npz")
             else:
