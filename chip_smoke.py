@@ -19,33 +19,59 @@
    and popcounts over the card's popcount rate); and two whole sites,
    `matcher.match_masked` at 704x1024 and `bow.assign_packed` at 704
    descriptors, as they were composed on the matrix kernel and as they are;
+   The fused kernel is also held against its plain version from a second
+   host thread on a CUDA stream of its own, as the place-recognition worker
+   launches it;
 4. VIO: renders 40 frames (2 s) of the synthetic circuit at the EuRoC
    operating point (752x480 stereo at 20 Hz, 200 Hz IMU, 704 keypoints) in
-   memory and feeds them to `VioPipeline` on the GPU: every pose must be
-   finite, the fused kernel must have been launched 4 times a frame, and the
-   online position ATE must be at most 0.25 m; the first frames are also run
-   on the CPU (plain versions) and must agree with the GPU run;
+   memory and feeds them to `VioPipeline` on the GPU under the JAX package's
+   default `PipelineConfig` (pose refinement, pipelined solve, loop closure
+   with the place-recognition worker), then `finish()`: every pose must be
+   finite, the association must have launched the fused kernel 4 times a
+   frame, and the online position ATE must be at most 0.25 m; the first
+   frames are also run on the CPU (plain versions) and must agree with the
+   GPU run (the CPU halves of this check and of phase 8 run meanwhile in a
+   spawned process);
 5. ratio-test matching: the cam-0 descriptors of the last two frames of that
    run through `matcher.match` with Lowe's ratio test and the mutual check,
    the caller that wants the distance matrix: the matrix kernel must have
    been launched and the matches must equal the CPU's;
-6. loop closure: the same operating point on a circuit of radius 2 m (one
-   lap in about 230 frames) with synchronous loop closure (BoW place
-   recognition on the shipped vocabulary, loop matching, non-central RANSAC,
-   pose-graph solve), then `finish()` and the final BA: at least one closure
-   must be accepted, the fused kernel must have been launched from the
-   vocabulary descent and the loop matching, every pose must be finite, and
-   the online and final ATE must both be at most 0.25 m.
+6. synchronous loop closure: the same operating point on a circuit of
+   radius 0.8 m (one lap in about 125 frames) with the synchronous,
+   non-pipelined path (BoW place recognition on the shipped vocabulary,
+   loop matching, non-central RANSAC, in-line pose-graph solve), then
+   `finish()` and the final BA: at least one closure must be accepted, the
+   fused kernel must have been launched from the vocabulary descent and the
+   loop matching, every pose must be finite, and the online and final ATE
+   must both be at most 0.25 m;
+7. asynchronous loop closure: a circuit of radius 2 m (one lap in about
+   230 frames) under the flagship
+   configuration of tools/slam_bench.py without its deferred frontend
+   (place recognition on the worker thread, background pose graph,
+   pipelined solve, the realtime budget controller at 35 ms with at least 6
+   iterations), then `finish()` and the final BA: the same checks, and the
+   background pose graph must have been synchronised, the worker must have
+   stopped, and the words the worker computed on its stream for a keyframe
+   must equal the CPU's;
+8. the matrix-free PCG pose-graph solver on drifted circles with loop
+   edges at 300 and 1000 nodes: the card's poses within 1e-6 of the CPU's,
+   and its time per solve.
 
-The second-to-last line is a JSON object describing the kernels; the last
-line is `{"ok": true, "device": {...}}`.  Any failure raises, and the script
-exits non-zero without printing a result.
+Every phase fails on an ERROR record logged by any thread (the background
+workers log and carry on, as in the JAX package).  The second-to-last line
+is a JSON object describing the kernels; the last line is
+`{"ok": true, "device": {...}}`.  Any failure raises, and the script exits
+non-zero without printing a result.
 """
 
 import json
+import logging
+import multiprocessing
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -59,11 +85,45 @@ MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 POPC_PER_CLOCK_PER_SM = 16
 GRAPH_LAUNCHES = 100
 N_FRAMES = 40
-LC_FRAMES = 260
+LC_FRAMES = 260  # the asynchronous phase: a lap of the 2 m circuit
 LC_RADIUS_M = 2.0
+SYNC_FRAMES = 128  # the synchronous phase: a lap of the 0.8 m circuit (1 rad/s)
+# the body starts at rest, as the estimator's stationary initialisation assumes
+SMALL_CIRCUIT = dict(radius=0.8, speed=0.8, speed_mod=-1.0 / (2 * np.pi * 0.07))
 ATE_LIMIT_M = 0.25
 CPU_FRAMES = 3
 CPU_GPU_TOL_M = 1e-3
+# the estimator of tools/slam_bench.py; the flagship adds the realtime budget
+BASE_EST = dict(cap_landmarks=1024, cap_obs=8192, max_iterations=10, early_exit_rel=5e-4)
+FLAGSHIP_EST = dict(realtime_time_limit=0.035, min_iterations=6)
+# tools/slam_bench.py's pipeline without the deferred frontend (the JAX
+# defaults leave async_place_recognition and pipelined_solve on)
+FLAGSHIP_PIPE = dict(do_loop_closures=True, async_loop_closure=True, pose_refine=False)
+SYNC_PIPE = dict(do_loop_closures=True, async_place_recognition=False,
+                 async_loop_closure=False, pose_refine=False, pipelined_solve=False)
+PCG_NODES = (300, 1000)
+PCG_ITERATIONS = 15  # PipelineConfig.full_graph_iterations
+PCG_TOL = 1e-6
+
+
+class ErrorRecords(logging.Handler):
+    """Keeps every ERROR record logged by any thread: a background worker
+    that fails logs and carries on, and the run must not."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def check(self, phase):
+        if self.records:
+            msgs = "; ".join(f"[{r.threadName}] {r.getMessage()}" for r in self.records)
+            raise RuntimeError(f"{phase}: {len(self.records)} error records: {msgs}")
+
+
+ERRORS = ErrorRecords()
 
 
 def random_words(rng, n):
@@ -206,6 +266,49 @@ def match_forms(rng, dev):
     return forms
 
 
+def check_on_worker_stream(forms):
+    """The fused kernel in the forms of the place-recognition worker's sites
+    (vocabulary descent, loop matching), launched from a second host thread
+    on a CUDA stream of its own, against its plain version; returns the
+    largest difference (0)."""
+    import torch
+    from okvis2x_tpu_torch.ops import hamming
+
+    sites = ("vocabulary branches 704x64", "vocabulary leaves, row_seg 704x4096",
+             "loop matching, 3 segments 704x2112")
+    done, errors = [], []
+
+    def work():
+        try:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.default_stream())  # the inputs' copies
+            with torch.cuda.stream(stream):
+                for name, q, vq, d, vd, kw in forms:
+                    if name not in sites:
+                        continue
+                    got = hamming.hamming_match(q, vq, d, vd, **kw)
+                    ref = hamming.hamming_match_plain(q, vq, d, vd, **kw)
+                    stream.synchronize()
+                    for g, r in zip(got, ref):
+                        if (g is None) != (r is None) or (g is not None and not torch.equal(g, r)):
+                            raise RuntimeError(
+                                f"hamming match != plain on a worker stream ({name})")
+                    done.append(name)
+        except Exception as e:  # noqa: BLE001 — raised on the main thread below
+            errors.append(e)
+
+    t = threading.Thread(target=work, name="kernel-check")
+    t.start()
+    t.join()
+    if errors:
+        raise errors[0]
+    if len(done) != len(sites):
+        raise RuntimeError(f"the worker-stream check ran {done}, expected {sites}")
+    print(f"hamming match from a second thread on its own stream: {len(done)} worker-site "
+          "forms == plain, exact")
+    return 0
+
+
 def matrix_bytes_popc(nq, nd):
     return 48 * (nq + nd) + 4 * nq * nd, 12 * nq * nd
 
@@ -273,6 +376,7 @@ def check_kernels(dev, card):
                 raise RuntimeError(f"hamming match != plain ({name}): {what} max err {err}")
         print(f"hamming match, {name}: kernel == plain, exact"
               + (" (minima of 1e9 present)" if int(got[0].max()) == 10 ** 9 else ""))
+    match_err = max(match_err, check_on_worker_stream(forms))
 
     # ---- times.  The library yardstick is the JAX matcher's formulation:
     # one bf16 matmul of the +-1 rows, then (384 - dot) / 2 (and one min over
@@ -400,9 +504,12 @@ def render(n_frames, **traj_kwargs):
     return seq
 
 
-def run_pipeline(seq, device, n_frames, record_times=False, loop_closure=False):
-    """Feed `n_frames` frames of `seq` to a fresh VioPipeline on `device`
-    (with synchronous loop closure when `loop_closure`)."""
+def run_pipeline(seq, device, n_frames, record_times=False, est_kw=(), pipe_kw=()):
+    """Feed `n_frames` frames of `seq` to a fresh VioPipeline on `device`:
+    the estimator of tools/slam_bench.py updated with `est_kw`, the JAX
+    package's default PipelineConfig at 704 keypoints updated with
+    `pipe_kw`; then `finish()`.  Returns (pipeline, frame infos, wall time a
+    frame, iterations of each pipelined window solve, wall time of finish)."""
     import torch
     from okvis2x_tpu_torch.cameras import pinhole
     from okvis2x_tpu_torch.graph.estimator import EstimatorConfig
@@ -412,12 +519,12 @@ def run_pipeline(seq, device, n_frames, record_times=False, loop_closure=False):
     cam = pinhole.make_pinhole(c["fx"], c["fy"], c["cx"], c["cy"], c["width"], c["height"],
                                model=c["model"], dist_params=c["dist_params"],
                                dtype=torch.float64, device=device)
-    est_cfg = EstimatorConfig(cap_landmarks=1024, cap_obs=8192, max_iterations=10,
-                              early_exit_rel=5e-4)
-    pipe_cfg = PipelineConfig(max_keypoints=704, do_loop_closures=loop_closure,
-                              async_place_recognition=False, async_loop_closure=False)
-    vio = VioPipeline([cam, cam], seq.T_SC, est_cfg, pipe_cfg, device=device)
-    infos, wall = [], []
+    est_cfg = EstimatorConfig(**(BASE_EST | dict(est_kw)))
+    pipe_cfg = PipelineConfig(**(dict(max_keypoints=704) | dict(pipe_kw)))
+    # on the card through the default device, as a user calls it
+    on_cpu = dict(device=device) if device.type == "cpu" else {}
+    vio = VioPipeline([cam, cam], seq.T_SC, est_cfg, pipe_cfg, **on_cpu)
+    infos, wall, iters = [], [], []
     n = 0
     for kind, data in seq.events():
         if kind == "imu":
@@ -430,8 +537,12 @@ def run_pipeline(seq, device, n_frames, record_times=False, loop_closure=False):
         if record_times and device.type == "cuda":
             torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
+        if vio._pending is not None:
+            iters.append(vio._pending["h"]["iters"])
         n += 1
-    return vio, infos, wall
+    t0 = time.perf_counter()
+    vio.finish()
+    return vio, infos, wall, iters, time.perf_counter() - t0
 
 
 def check_positions(vio, n_frames, what):
@@ -451,10 +562,38 @@ def ate_checked(seq, ts, Ts, what):
     return ate
 
 
-def vio_phase(dev, card):
-    """40 frames of VIO on the GPU, the first frames again on the CPU, then
-    ratio-test matching of the last two frames.  Returns the launches of the
-    (fused, matrix) kernels on these paths."""
+def vio_cpu_positions():
+    """The first CPU_FRAMES positions of the VIO phase's run on the CPU
+    (plain kernel versions); with the run's seconds."""
+    import torch
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    vio, _, _, _, _ = run_pipeline(render(N_FRAMES), torch.device("cpu"), CPU_FRAMES)
+    return np.stack([s[1][:3] for s in vio.states_log]), time.perf_counter() - t0
+
+
+def pcg_cpu_solves():
+    """The PCG phase's solves on the CPU: {nodes: (poses, cost, seconds)}."""
+    import torch
+    from okvis2x_tpu_torch.parallel import dist_posegraph
+
+    torch.set_num_threads(2)
+    out = {}
+    for K in PCG_NODES:
+        *args, _ = drifted_circle(K, np.random.default_rng(K))
+        t0 = time.perf_counter()
+        T, cost = dist_posegraph.optimize_pose_graph_pcg(*args, iterations=PCG_ITERATIONS,
+                                                         device="cpu")
+        out[K] = (T, cost, time.perf_counter() - t0)
+    return out
+
+
+def vio_phase(dev, card, cpu_positions):
+    """40 frames of VIO on the GPU under the JAX default configuration,
+    against the CPU's first frames (`cpu_positions`, a future of
+    `vio_cpu_positions`), then ratio-test matching of the last two frames.
+    Returns the launches of the (fused, matrix) kernels on these paths."""
     import torch
     from okvis2x_tpu_torch.ops import hamming
     from okvis2x_tpu_torch.utils import timing
@@ -466,36 +605,38 @@ def vio_phase(dev, card):
     torch.cuda.reset_peak_memory_stats(dev)
     hamming.reset_launch_counts()
     t0 = time.perf_counter()
-    vio, infos, wall = run_pipeline(seq, dev, N_FRAMES, record_times=True)
+    vio, infos, wall, _, _ = run_pipeline(seq, dev, N_FRAMES, record_times=True)
     t_run = time.perf_counter() - t0
     launches = hamming.hamming_match.launches
+    sites = dict(hamming.hamming_match.site_launches)
     on_matrix = hamming.hamming_matrix_packed.launches
     peak = torch.cuda.max_memory_allocated(dev)
     ts, Ts = check_positions(vio, N_FRAMES, "VIO")
-    if launches != 4 * N_FRAMES or on_matrix != 0:
-        raise RuntimeError(f"the VIO path launched the fused kernel {launches} times and the "
-                           f"matrix kernel {on_matrix} times over {N_FRAMES} frames; expected "
-                           f"{4 * N_FRAMES} and 0")
+    n_kf = sum(i["is_keyframe"] for i in infos)
+    if sites.get("assoc", 0) != 4 * N_FRAMES or on_matrix != 0:
+        raise RuntimeError(f"the VIO path launched the fused kernel {sites} and the matrix "
+                           f"kernel {on_matrix} times over {N_FRAMES} frames; expected "
+                           f"{4 * N_FRAMES} association launches and 0")
+    ERRORS.check("VIO phase")
     ate = ate_checked(seq, ts, Ts, "VIO online")
     ms = np.asarray(wall) * 1e3
     counts = np.array([[i["n_map"], i["n_stereo"], i["n_motion"]] for i in infos])
     p50 = np.median(counts, axis=0)
-    print(f"VIO path: {N_FRAMES} frames in {t_run:.1f} s, dtype "
-          f"{vio.est.cfg.dtype}, online ATE {ate:.4f} m, ms/frame p50 "
-          f"{np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} "
-          f"(first frame {ms[0]:.1f}), peak allocated {peak / 2**20:.1f} MiB, "
-          f"fused match launches {launches} = 4 a frame, matrix launches {on_matrix} ({card})")
+    print(f"VIO path (JAX default PipelineConfig: pose refinement, pipelined solve, place "
+          f"recognition worker): {N_FRAMES} frames in {t_run:.1f} s, dtype {vio.est.cfg.dtype}, "
+          f"online ATE {ate:.4f} m, ms/frame p50 {np.percentile(ms, 50):.1f} p90 "
+          f"{np.percentile(ms, 90):.1f} (first frame {ms[0]:.1f}), peak allocated "
+          f"{peak / 2**20:.1f} MiB, fused match launches {launches} by site {sites} = 4 a frame "
+          f"+ 2 a keyframe ({n_kf}) on the worker, matrix launches {on_matrix} ({card})")
     print(f"VIO path counts p50: map {p50[0]:.0f} stereo {p50[1]:.0f} motion "
-          f"{p50[2]:.0f}; keyframes {sum(i['is_keyframe'] for i in infos)} ({card})")
+          f"{p50[2]:.0f}; keyframes {n_kf} ({card})")
     print(timing.report())
 
     # the same first frames on the CPU (plain Hamming version)
-    t0 = time.perf_counter()
-    vio_c, _, _ = run_pipeline(seq, torch.device("cpu"), CPU_FRAMES)
-    p_cpu = np.stack([s[1][:3] for s in vio_c.states_log])
+    p_cpu, t_cpu = cpu_positions.result()
     gap = float(np.abs(p_cpu - Ts[:CPU_FRAMES, :3]).max())
     print(f"cpu vs gpu over {CPU_FRAMES} frames: max position gap {gap:.3e} m "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"(CPU run {t_cpu:.1f} s, in a process of its own)")
     if not gap <= CPU_GPU_TOL_M:
         raise RuntimeError(f"GPU and CPU runs disagree by {gap} m")
     return launches, ratio_match_phase(vio, dev)
@@ -530,26 +671,36 @@ def ratio_match_phase(vio, dev):
     return launches
 
 
-def loop_closure_phase(dev, card):
-    """Synchronous loop closure over one lap of the small circuit, then
-    finish() and the final BA.  Returns the fused kernel's launches."""
+def loop_closure_phase(dev, card, asynchronous):
+    """One lap of a circuit with loop closure, then finish() and the final
+    BA: the synchronous, non-pipelined path on the 0.8 m circuit, or the
+    flagship's asynchronous one on the 2 m circuit.  Returns the fused
+    kernel's launches."""
     import torch
     from okvis2x_tpu_torch.frontend import bow
     from okvis2x_tpu_torch.ops import hamming
     from okvis2x_tpu_torch.utils import timing
 
+    what = "asynchronous loop-closure" if asynchronous else "synchronous loop-closure"
+    n_frames = LC_FRAMES if asynchronous else SYNC_FRAMES
+    traj = dict(radius=LC_RADIUS_M) if asynchronous else SMALL_CIRCUIT
     t0 = time.perf_counter()
-    seq = render(LC_FRAMES, radius=LC_RADIUS_M)
-    print(f"rendered {LC_FRAMES} frames at 752x480, circuit radius {LC_RADIUS_M} m: "
+    seq = render(n_frames, **traj)
+    print(f"rendered {n_frames} frames at 752x480, circuit radius {traj['radius']} m: "
           f"{time.perf_counter() - t0:.1f} s")
     timing.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     hamming.reset_launch_counts()
     t0 = time.perf_counter()
-    vio, infos, wall = run_pipeline(seq, dev, LC_FRAMES, record_times=True, loop_closure=True)
-    vio.finish()
+    if asynchronous:
+        kw = dict(est_kw=FLAGSHIP_EST, pipe_kw=FLAGSHIP_PIPE)
+    else:
+        kw = dict(pipe_kw=SYNC_PIPE)
+    threads_before = set(threading.enumerate())
+    vio, infos, wall, iters, t_finish = run_pipeline(seq, dev, n_frames, record_times=True,
+                                                     **kw)
     t_run = time.perf_counter() - t0
-    ts, Ts = check_positions(vio, LC_FRAMES, "loop-closure")
+    ts, Ts = check_positions(vio, n_frames, what)
     t0 = time.perf_counter()
     cost = vio.est.final_ba()
     torch.cuda.synchronize()
@@ -561,39 +712,123 @@ def loop_closure_phase(dev, card):
     ft, fT = vio.est.full_trajectory()
     if not np.isfinite(fT).all() or not np.isfinite(cost):
         raise RuntimeError("non-finite poses or cost after the final BA")
-    closures = [(i["fid"], e["i"]) for i in infos if i["loop_closure"]
-                for e in vio.est.archive_edges if e.get("loop") and e["j"] == i["fid"]]
-    print(f"loop closures {vio.n_loop_closures} (frame, candidate) {closures}, landmarks "
-          f"merged {vio.n_landmarks_merged}, keyframe records {len(vio.kf_records)}")
+    closures = sorted((int(e["j"]), int(e["i"])) for e in vio.est.archive_edges
+                      if e.get("loop"))
+    print(f"{what}: closures {vio.n_loop_closures} (frame, candidate) {closures}, landmarks "
+          f"merged {vio.n_landmarks_merged}, keyframe records {len(vio.kf_records)} ({card})")
     n_kf = sum(i["is_keyframe"] for i in infos)
-    print(f"fused match launches by site {sites} over {LC_FRAMES} frames and {n_kf} "
+    print(f"{what}: fused match launches by site {sites} over {n_frames} frames and {n_kf} "
           f"keyframes; matrix kernel launches {on_matrix}")
+    ERRORS.check(what)
     if vio.n_loop_closures < 1:
-        raise RuntimeError("no loop closure was accepted")
+        raise RuntimeError(f"{what}: no loop closure was accepted")
     for site in ("bow", "lc_match"):
         if sites.get(site, 0) <= 0:
-            raise RuntimeError(f"the fused kernel was never launched from site {site!r}")
-    if sites.get("assoc", 0) != 4 * LC_FRAMES or on_matrix != 0:
-        raise RuntimeError("the association did not launch the fused kernel 4 times a frame, "
-                           "or the loop-closure path launched the matrix kernel")
-    ate_on = ate_checked(seq, ts, Ts, "loop-closure online")
-    ate_fin = ate_checked(seq, ft, fT, "final")
+            raise RuntimeError(f"{what}: the fused kernel was never launched from site {site!r}")
+    if sites.get("assoc", 0) != 4 * n_frames or on_matrix != 0:
+        raise RuntimeError(f"{what}: the association did not launch the fused kernel 4 times a "
+                           "frame, or the path launched the matrix kernel")
+    ate_on = ate_checked(seq, ts, Ts, f"{what} online")
+    ate_fin = ate_checked(seq, ft, fT, f"{what} final")
     ms = np.asarray(wall) * 1e3
-    print(f"loop-closure path: {LC_FRAMES} frames in {t_run:.1f} s, online ATE "
-          f"{ate_on:.4f} m, final ATE {ate_fin:.4f} m over {len(ft)} keyframes, ms/frame "
-          f"p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f}, 2.8 LoopClosure "
-          f"mean {timing.mean_ms('2.8 LoopClosure'):.1f} ms, final BA {t_ba:.1f} s, peak "
-          f"allocated {peak / 2**20:.1f} MiB, fused match launches {launches} ({card})")
+    print(f"{what}: {n_frames} frames in {t_run:.1f} s (finish() {t_finish:.1f} s), online "
+          f"ATE {ate_on:.4f} m, final ATE {ate_fin:.4f} m over {len(ft)} keyframes, ms/frame "
+          f"p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max {ms.max():.1f}, "
+          f"2.8 LoopClosure mean {timing.mean_ms('2.8 LoopClosure'):.1f} ms, final BA "
+          f"{t_ba:.1f} s, peak allocated {peak / 2**20:.1f} MiB, fused match launches "
+          f"{launches} ({card})")
+    if asynchronous:
+        fg = vio.full_graph
+        hist = {int(k): int(n) for k, n in zip(*np.unique(iters, return_counts=True))}
+        left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+        print(f"{what}: full graph dispatched {fg.n_dispatched}, synchronised "
+              f"{fg.n_synchronised}, stale discarded {fg.n_stale_discarded}; keyframes demoted "
+              f"to index-only {vio._lc_skipped}; window solve iterations {hist} "
+              f"(histogram of _rt_iters at dispatch), budget overruns {vio.est.n_budget_overruns} "
+              f"of {len(iters)} solves; threads left after finish(): {left} ({card})")
+        if fg.n_synchronised < 1:
+            raise RuntimeError(f"{what}: the background pose graph was never synchronised")
+        if left or vio._lc_thread is not None or fg.is_loop_closing:
+            raise RuntimeError(f"{what}: threads still running after finish(): {left}")
+        # the words the worker computed on its stream, against the CPU
+        rec = next(r for r in vio.kf_records.values() if "words" in r)
+        w_cpu = bow.assign_packed(rec["packed_d"].cpu(), rec["valid_d"].cpu(),
+                                  vio.vocab.to("cpu")).numpy()
+        if not np.array_equal(rec["words"], w_cpu):
+            raise RuntimeError("the worker's vocabulary words differ from the CPU's")
+        print(f"{what}: vocabulary words computed by the worker on its stream == CPU, exact "
+              f"({card})")
+    else:
+        # the vocabulary descent of one keyframe on the card and on the CPU
+        rec = vio.kf_records[min(vio.kf_records)]
+        w_gpu = bow.assign_packed(rec["packed_d"], rec["valid_d"], vio.vocab).cpu()
+        w_cpu = bow.assign_packed(rec["packed_d"].cpu(), rec["valid_d"].cpu(),
+                                  vio.vocab.to("cpu"))
+        if not torch.equal(w_gpu, w_cpu):
+            raise RuntimeError("vocabulary words differ between the card and the CPU")
+        print(f"{what}: vocabulary words of the first keyframe: card == CPU, exact")
     print(timing.report())
-
-    # the vocabulary descent of one keyframe on the card and on the CPU
-    rec = vio.kf_records[min(vio.kf_records)]
-    w_gpu = bow.assign_packed(rec["packed_d"], rec["valid_d"], vio.vocab).cpu()
-    w_cpu = bow.assign_packed(rec["packed_d"].cpu(), rec["valid_d"].cpu(), vio.vocab.to("cpu"))
-    if not torch.equal(w_gpu, w_cpu):
-        raise RuntimeError("vocabulary words differ between the card and the CPU")
-    print("vocabulary words of the first keyframe: card == CPU, exact")
     return launches
+
+
+def drifted_circle(K, rng, radius=5.0):
+    """K keyframes on a circle with drifting estimates, noisy odometry edges
+    to the next two keyframes and loop edges from the last quarter to the
+    first four: the pose graph of a loop closure."""
+    from okvis2x_tpu_torch.core import se3np
+
+    gt, est = [], []
+    for k in range(K):
+        th = 2 * np.pi * k / K
+        T = np.concatenate([[radius * np.cos(th), radius * np.sin(th), 0.0],
+                            se3np.delta_q(np.array([0.0, 0.0, th + np.pi / 2]))])
+        gt.append(T)
+        est.append(se3np.retract(T, np.concatenate([[1.0, 0.5, 0.1], [0, 0, 1.0]]) * 0.8 * k / K))
+    ei, ej, eT, eS = [], [], [], []
+    for a, b, w, noise in ([(k, k + 1, 100.0, 1e-3) for k in range(K - 1)]
+                           + [(k, k + 2, 100.0, 1e-3) for k in range(K - 2)]
+                           + [(k % 4, k, 50.0, 2e-3) for k in range(K - K // 4, K)]):
+        ei.append(a)
+        ej.append(b)
+        eT.append(se3np.retract(se3np.se3_multiply(se3np.se3_inverse(gt[a]), gt[b]),
+                                rng.normal(0, noise, 6)))
+        eS.append(np.eye(6) * w)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    return (np.stack(est), fixed, np.array(ei), np.array(ej), np.stack(eT), np.stack(eS),
+            np.stack(gt))
+
+
+def pcg_phase(dev, card, cpu_solves):
+    """The matrix-free PCG pose-graph solver at 300 and 1000 nodes on the
+    card, against the CPU's solves (`cpu_solves`, a future of
+    `pcg_cpu_solves`); the card's time a solve."""
+    import torch
+    from okvis2x_tpu_torch.parallel import dist_posegraph
+
+    for K in PCG_NODES:
+        *args, gt = drifted_circle(K, np.random.default_rng(K))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T_gpu, cost_gpu = dist_posegraph.optimize_pose_graph_pcg(
+            *args, iterations=PCG_ITERATIONS, device=dev)
+        t_gpu = time.perf_counter() - t0  # the result is on the host: synchronised
+        T_cpu, cost_cpu, t_cpu = cpu_solves.result()[K]
+        gap = float(np.abs(T_gpu - T_cpu).max())
+        err = float(np.linalg.norm(T_gpu[:, :3] - gt[:, :3], axis=1).max())
+        err0 = float(np.linalg.norm(args[0][:, :3] - gt[:, :3], axis=1).max())
+        Kp = dist_posegraph.bucket(K, 64)
+        print(f"PCG pose graph {K} nodes, {len(args[2])} edges (padded {Kp} nodes, "
+              f"{dist_posegraph.bucket(len(args[2]), 256)} edges, {max(128, Kp)} CG iterations "
+              f"x {PCG_ITERATIONS} LM steps): card {t_gpu * 1e3:.1f} ms a solve, CPU "
+              f"{t_cpu * 1e3:.1f} ms; card vs CPU max pose gap "
+              f"{gap:.3e}, cost {cost_gpu:.6e} vs {cost_cpu:.6e}; max position error "
+              f"{err0:.3f} -> {err:.4f} m ({card})")
+        if not gap <= PCG_TOL or not np.isfinite(T_gpu).all():
+            raise RuntimeError(f"PCG pose graph at {K} nodes: card and CPU differ by {gap}")
+        if not err < err0:
+            raise RuntimeError(f"PCG pose graph at {K} nodes did not reduce the drift")
+    ERRORS.check("PCG phase")
 
 
 def main() -> int:
@@ -604,6 +839,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    logging.getLogger().addHandler(ERRORS)
 
     dev = torch.device("cuda:0")
     card = subprocess.run(
@@ -619,19 +855,31 @@ def main() -> int:
     time_sites(dev, card)
     device_ms.stream = None
     torch.cuda.empty_cache()
+    ERRORS.check("kernel phase")
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s; it leaves "
           f"{torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB allocated (the library "
           "yardstick's cuBLAS workspace), which the phases' peaks below include")
 
-    # ---- phases 4 to 6: the main paths
-    t0 = time.perf_counter()
-    on_match, on_matrix = vio_phase(dev, card)
-    print(f"VIO phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    on_match += loop_closure_phase(dev, card)
-    print(f"loop-closure phase: {time.perf_counter() - t0:.1f} s")
+    # ---- phases 4 to 8: the main paths, then the PCG pose graph; the CPU
+    # halves of their card-vs-CPU checks run meanwhile in a process of
+    # their own (one core of the host; the card's phases are host-bound on
+    # one other)
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_positions = pool.submit(vio_cpu_positions)
+        cpu_solves = pool.submit(pcg_cpu_solves)
+        t0 = time.perf_counter()
+        on_match, on_matrix = vio_phase(dev, card, cpu_positions)
+        print(f"VIO phase: {time.perf_counter() - t0:.1f} s")
+        for asynchronous in (False, True):
+            t0 = time.perf_counter()
+            on_match += loop_closure_phase(dev, card, asynchronous)
+            print(f"{'asynchronous' if asynchronous else 'synchronous'} loop-closure phase: "
+                  f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pcg_phase(dev, card, cpu_solves)
+        print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
-    # times at 704x1024, the map matching's shape
+    # times at 704x1024, the map matching's shape; launches over phases 4-7
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

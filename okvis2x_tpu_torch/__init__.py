@@ -24,13 +24,17 @@ Layer map (as in okvis2x_tpu):
   frontend/  detection, description,                   marginalisation
              matching, triangulation        ops/       the Hamming kernel
   pipeline/  per-frame orchestration        io/        synthetic data, ATE
-  utils/     timing                         convert.py state from the JAX
-                                                       package (numpy)
+  parallel/  matrix-free pose-graph PCG     utils/     timing, the
+  convert.py state from the JAX package                forward-AD lock
+             (numpy)
 
-Ported so far: the synchronous stereo-inertial VIO path
-(``pipeline.vio.VioPipeline``) with synchronous loop closure (BoW, RANSAC,
-the pose graph) and the final BA.  The asynchronous loop closure, GNSS,
-depth, LiDAR, submaps, the learned models, ROS2 and ``parallel/`` are not
+Ported so far: the stereo-inertial VIO path (``pipeline.vio.VioPipeline``)
+with pose refinement and the pipelined solve, loop closure (BoW, RANSAC,
+the pose graph) synchronous or asynchronous (the place-recognition worker,
+the background full graph of ``graph/fullgraph.py``), the single-device
+matrix-free pose-graph solver of ``parallel/dist_posegraph.py`` and the
+final BA.  The deferred fused frontend, GNSS, depth, LiDAR, submaps, the
+learned models, ROS2 and the multi-device ``parallel/`` solvers are not
 ported yet.
 
 The entry points run on the first CUDA device unless the caller names

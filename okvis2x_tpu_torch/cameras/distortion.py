@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from okvis2x_tpu_torch.utils import forward_ad
+
 RADTAN = "radtan"
 RADTAN8 = "radtan8"
 EQUIDISTANT = "equidistant"
@@ -92,8 +94,9 @@ def undistort(model: str, params: torch.Tensor, xy_d: torch.Tensor) -> torch.Ten
         e0[..., 0] = 1.0
         e1 = torch.zeros_like(xy)
         e1[..., 1] = 1.0
-        val, Jc0 = torch.func.jvp(f, (xy,), (e0,))
-        _, Jc1 = torch.func.jvp(f, (xy,), (e1,))
+        with forward_ad.LOCK:
+            val, Jc0 = torch.func.jvp(f, (xy,), (e0,))
+            _, Jc1 = torch.func.jvp(f, (xy,), (e1,))
         r = val - xy_d
         a, b = Jc0[..., 0], Jc1[..., 0]
         c, d = Jc0[..., 1], Jc1[..., 1]

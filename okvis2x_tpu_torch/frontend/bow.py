@@ -24,6 +24,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from okvis2x_tpu_torch import default_device
 from okvis2x_tpu_torch.ops import hamming
 
 # the vocabulary shipped with the JAX package: a data file, read in place
@@ -48,8 +49,10 @@ class HierVocabulary:
         return HierVocabulary(self.branches.to(device), self.leaves.to(device))
 
     @classmethod
-    def load(cls, path=DEFAULT_VOCAB, device="cpu") -> "HierVocabulary":
-        """Read the packed .npz (uint32 words, LSB-first bits) as int32."""
+    def load(cls, path=DEFAULT_VOCAB, device=None) -> "HierVocabulary":
+        """Read the packed .npz (uint32 words, LSB-first bits) as int32 onto
+        `device` (None: the first CUDA device)."""
+        device = default_device() if device is None else torch.device(device)
         z = np.load(path)
 
         def words(a):

@@ -51,6 +51,7 @@ from okvis2x_tpu_torch.graph.marginalization import two_pose_edge
 from okvis2x_tpu_torch.graph.posegraph import max_spanning_tree
 from okvis2x_tpu_torch.imu import preintegration as pre
 from okvis2x_tpu_torch.imu import preintegration_np as pre_np
+from okvis2x_tpu_torch.parallel import dist_posegraph
 from okvis2x_tpu_torch.solver import gauss_newton as gn
 from okvis2x_tpu_torch.solver import problem as prb
 from okvis2x_tpu_torch.utils import timing
@@ -74,7 +75,12 @@ class EstimatorConfig:
     cap_icp: int = 0
     keypoint_sigma_px: float = 0.8
     max_iterations: int = 10
+    # realtime solve budget: > 0 steps the iteration count of the pipelined
+    # window solve down a bucket (max -> midpoint -> min_iterations) while
+    # the EMA of the measured solve wall time overruns it, and back up on
+    # slack (`adapt_realtime_budget`)
     realtime_time_limit: float = 0.0
+    min_iterations: int = 3
     # > 0: early exit of the LM loop on converged accepted steps
     early_exit_rel: float = 0.0
     imu: pre.ImuParams = pre.ImuParams()
@@ -118,8 +124,6 @@ class SlidingWindowEstimator:
         (pass device="cpu" to run on the CPU)."""
         if config.do_extrinsics or config.do_extrinsics_final_ba:
             raise NotImplementedError("online extrinsics calibration is not ported yet")
-        if config.realtime_time_limit:
-            raise NotImplementedError("the realtime budget controller is not ported yet")
         if config.cap_icp:
             raise NotImplementedError("live submap ICP factors are not ported yet")
         self.cfg = config
@@ -131,6 +135,12 @@ class SlidingWindowEstimator:
         self.frames: List[FrameState] = []
         self._next_fid = 0
         self._next_lid = 0
+
+        # realtime budget controller: iteration bucket of the next pipelined
+        # solve, EMA of the solve wall time, overrun count
+        self._rt_iters = config.max_iterations
+        self._rt_ema = 0.0
+        self.n_budget_overruns = 0
 
         # landmark store: lid -> row index in the dense arrays
         self.lm_ids: List[int] = []
@@ -676,19 +686,85 @@ class SlidingWindowEstimator:
         self.hp_W = hp[: len(self.lm_ids)]
 
     def optimise(self, iterations: Optional[int] = None, pose_only: bool = False) -> float:
-        """Ungated window solve with writeback (run after a loop closure);
-        returns the final cost."""
-        if pose_only:
-            raise NotImplementedError("the pose-only refinement is not ported yet")
+        """Ungated window solve with writeback (after a loop closure; with
+        `pose_only` the inline pose refinement between association and the
+        window solve: landmarks held, poses and speed/bias free); returns
+        the final cost."""
         iters = iterations or self.cfg.max_iterations
         with timing.Timer("3.1 BuildProblem"):
             p, fid2slot, _ = self._build_problem()
+        cfg = self._solver_config(iters)._replace(estimate_landmarks=not pose_only)
         with timing.Timer("3.2 SolveDevice"):
-            p_opt, cost = gn.optimize(p, self.cams, self._solver_config(iters))
+            p_opt, cost = gn.optimize(p, self.cams, cfg)
             cost = float(cost)
         with timing.Timer("3.3 Readback"):
             self._writeback(p_opt, fid2slot)
         return cost
+
+    def optimise_gated_dispatch(self, fid: int, gate_px: float,
+                                iterations: Optional[int] = None, iterations2: int = 2) -> dict:
+        """Build the gated window solve of frame `fid` and return its handle
+        for `optimise_gated_collect`; `iterations` None is the realtime
+        budget's current bucket (`_rt_iters`).
+
+        The handle keeps the problem as built here, the frame slots, the
+        observation uid of each problem row and the landmark ids of its
+        rows; the solve itself runs when the handle is collected.  Between
+        the two the host may only append frames, landmarks and observations
+        (association does): the writeback goes by frame id, landmark id and
+        observation uid."""
+        iters = iterations or self._rt_iters
+        with timing.Timer("3.1 BuildProblem"):
+            p, fid2slot, obs_uids = self._build_problem()
+        return dict(p=p, fid2slot=fid2slot, obs_uids=obs_uids, fid=fid, gate_px=float(gate_px),
+                    iters=iters, iters2=iterations2,
+                    lm_lids=np.array(self.lm_ids, np.int64))
+
+    def optimise_gated_collect(self, h: dict):
+        """Solve a dispatched handle: window solve, chi2 gate on the
+        observations of its frame, short re-solve without the flagged rows;
+        then write back the poses and speed/bias of the frames still in the
+        window, the landmarks by id, and remove the flagged observations by
+        uid.  Returns (cost, n_outliers)."""
+        p, fid2slot = h["p"], h["fid2slot"]
+        with timing.Timer("3.2 SolveDevice"):
+            p1, _ = gn.optimize(p, self.cams, self._solver_config(h["iters"]))
+            f, c, l = p1.obs_frame, p1.obs_cam, p1.obs_lm
+            r, proj_ok = reprojection_residual(
+                self.cams.at(c), p1.T_WS[f], p1.T_SC[c], p1.hp_W[l], p1.obs_uv,
+                p1.obs_sqrt_info,
+            )
+            err_px = torch.linalg.norm(r, dim=-1) / torch.clamp(p1.obs_sqrt_info, min=1e-12)
+            out = (p1.obs_valid & (f == fid2slot.get(h["fid"], -1))
+                   & (~proj_ok | (err_px > h["gate_px"])))
+            p2 = p1._replace(obs_valid=p1.obs_valid & ~out)
+            p3, cost = gn.optimize(p2, self.cams, self._solver_config(h["iters2"]))
+        with timing.Timer("3.3 Readback"):
+            T = p3.T_WS.cpu().numpy().astype(np.float64)
+            sb = p3.sb.cpu().numpy().astype(np.float64)
+            hp = p3.hp_W.cpu().numpy().astype(np.float64)
+            out_rows = np.nonzero(out.cpu().numpy())[0]
+            cost = float(cost)
+            live = {fr.fid for fr in self.frames}
+            for fr_id, slot in fid2slot.items():
+                if fr_id not in live:
+                    continue
+                fr = self._frame_by_id(fr_id)
+                fr.T_WS = self._clamp_held(fr, T[slot])
+                fr.sb = sb[slot]
+            # landmarks by id: rows map through the dispatch-time ids, so a
+            # landmark pruned or moved since lands in its row or nowhere
+            snap = h["lm_lids"]
+            if len(snap):
+                tgt = np.array([self.lm_index.get(int(lid), -1) for lid in snap], np.int64)
+                ok = tgt >= 0
+                self.hp_W[tgt[ok]] = hp[:len(snap)][ok]
+        obs_uids = h["obs_uids"]
+        if len(out_rows):
+            # outliers by uid: row indices shift, uids do not
+            bad = obs_uids[out_rows[out_rows < len(obs_uids)]]
+            self._keep_obs(~np.isin(self.obs_uid, bad))
+        return cost, len(out_rows)
 
     def optimise_gated(self, fid: int, gate_px: float, iterations: Optional[int] = None,
                        iterations2: int = 2):
@@ -696,28 +772,32 @@ class SlidingWindowEstimator:
         re-solve without the flagged rows; writes poses, speed/bias and
         landmarks back and removes the flagged observations.  Returns
         (cost, n_outliers)."""
-        iters = iterations or self.cfg.max_iterations
-        with timing.Timer("3.1 BuildProblem"):
-            p, fid2slot, obs_uids = self._build_problem()
-        with timing.Timer("3.2 SolveDevice"):
-            p1, _ = gn.optimize(p, self.cams, self._solver_config(iters))
-            f, c, l = p1.obs_frame, p1.obs_cam, p1.obs_lm
-            r, proj_ok = reprojection_residual(
-                self.cams.at(c), p1.T_WS[f], p1.T_SC[c], p1.hp_W[l], p1.obs_uv,
-                p1.obs_sqrt_info,
-            )
-            err_px = torch.linalg.norm(r, dim=-1) / torch.clamp(p1.obs_sqrt_info, min=1e-12)
-            out = p1.obs_valid & (f == fid2slot.get(fid, -1)) & (~proj_ok | (err_px > gate_px))
-            p2 = p1._replace(obs_valid=p1.obs_valid & ~out)
-            p3, cost = gn.optimize(p2, self.cams, self._solver_config(iterations2))
-        with timing.Timer("3.3 Readback"):
-            self._writeback(p3, fid2slot)
-            out_rows = np.nonzero(out.cpu().numpy())[0]
-            cost = float(cost)
-        if len(out_rows):
-            bad = obs_uids[out_rows[out_rows < len(obs_uids)]]
-            self._keep_obs(~np.isin(self.obs_uid, bad))
-        return cost, len(out_rows)
+        return self.optimise_gated_collect(
+            self.optimise_gated_dispatch(fid, gate_px, iterations, iterations2))
+
+    def adapt_realtime_budget(self, solve_wall_s: float) -> bool:
+        """Feed one measured realtime-solve wall time into the budget
+        controller: while the EMA of the times overruns
+        `realtime_time_limit`, the next solves step down an iteration bucket
+        (max -> midpoint -> min_iterations); on sustained slack (EMA under
+        half the limit) they step back up.  Returns whether this sample
+        overran the limit; a limit of 0 disables the controller."""
+        cfg = self.cfg
+        limit = cfg.realtime_time_limit
+        if not limit:
+            return False
+        self._rt_ema = 0.7 * self._rt_ema + 0.3 * solve_wall_s
+        over = solve_wall_s > limit
+        if over:
+            self.n_budget_overruns += 1
+        buckets = sorted({cfg.min_iterations, (cfg.min_iterations + cfg.max_iterations) // 2,
+                          cfg.max_iterations})
+        i = min(range(len(buckets)), key=lambda k: abs(buckets[k] - self._rt_iters))
+        if self._rt_ema > limit and i > 0:
+            self._rt_iters = buckets[i - 1]
+        elif self._rt_ema < 0.5 * limit and i < len(buckets) - 1:
+            self._rt_iters = buckets[i + 1]
+        return over
 
     # -------------------------------------------------------- marginalisation
     def _drop_frame(self, fid: int):
@@ -1356,12 +1436,7 @@ class SlidingWindowEstimator:
                 all_edges.append(dict(i=a.fid, j=b.fid, T_ij=T_ij, sqrt_info=np.eye(6) * 20.0))
         all_edges = [e for e in all_edges if e["i"] in fid2slot and e["j"] in fid2slot]
 
-        def bucket(n, base):
-            c = base
-            while c < n:
-                c *= 2
-            return c
-
+        bucket = dist_posegraph.bucket
         K, L, N = bucket(nf, 16), bucket(nl, 64), bucket(n_obs, 256)
         R = bucket(len(all_edges), 16)
         M = bucket(len(imu_links), 8) if imu_links else 1
@@ -1513,11 +1588,11 @@ class SlidingWindowEstimator:
             snap = self.snapshot_pose_graph()
             moved = 0.0
             if snap is not None:
-                if snap["T"].shape[0] > 256:
-                    raise NotImplementedError(
-                        "the matrix-free pose-graph solver for more than 256 "
-                        "keyframes is not ported yet")
-                T_opt, _ = posegraph.optimize_pose_graph(
+                # above 256 nodes the matrix-free PCG solver, as the
+                # background full graph switches to it
+                solve = (dist_posegraph.optimize_pose_graph_pcg if snap["T"].shape[0] > 256
+                         else posegraph.optimize_pose_graph)
+                T_opt, _ = solve(
                     snap["T"], snap["fixed"], snap["ei"], snap["ej"], snap["eT"],
                     snap["eS"], iterations=iterations, dtype=self.cfg.dtype,
                     device=self.device,

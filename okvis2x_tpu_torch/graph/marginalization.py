@@ -24,6 +24,7 @@ from okvis2x_tpu_torch.cameras.pinhole import Camera
 from okvis2x_tpu_torch.core import se3
 from okvis2x_tpu_torch.factors import reprojection, robust
 from okvis2x_tpu_torch.solver.gauss_newton import StackedCameras
+from okvis2x_tpu_torch.utils import forward_ad
 
 
 def two_pose_edge(
@@ -62,10 +63,11 @@ def two_pose_edge(
         (Jp, Jh), (r, valid) = jacfwd(f, argnums=(0, 1), has_aux=True)(z6, z3)
         return r, Jp, Jh, valid
 
-    r, Jp, Jh, valid = vmap(one)(
-        poses[obs_pose], T_SC[obs_cam], hp_W[obs_lm], obs_uv, obs_sqrt_info,
-        cams.fxfycxcy[obs_cam], cams.dist_params[obs_cam],
-    )
+    with forward_ad.LOCK:
+        r, Jp, Jh, valid = vmap(one)(
+            poses[obs_pose], T_SC[obs_cam], hp_W[obs_lm], obs_uv, obs_sqrt_info,
+            cams.fxfycxcy[obs_cam], cams.dist_params[obs_cam],
+        )
     # pose Jacobian into the 12-wide row at column 6 * pose
     Jrow = torch.zeros((N, 2, 12), dtype=dtype, device=dev)
     cols = (obs_pose[:, None] * 6 + torch.arange(6, device=dev))[:, None, :]
@@ -100,7 +102,8 @@ def two_pose_edge(
         Tb = se3.se3_multiply(Ta, se3.retract(T_ab, drel))
         return torch.cat([da, se3.local_delta(T_WS_b, Tb)])
 
-    Aa, Ar = jacfwd(to_abs, argnums=(0, 1))(z6, z6)
+    with forward_ad.LOCK:
+        Aa, Ar = jacfwd(to_abs, argnums=(0, 1))(z6, z6)
     A = torch.cat([Aa, Ar], dim=1)
     Hy = A.T @ H2 @ A
     H_aa, H_ar, H_rr = Hy[:6, :6], Hy[:6, 6:], Hy[6:, 6:]

@@ -16,6 +16,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from okvis2x_tpu_torch import default_device
 from okvis2x_tpu_torch.cameras import distortion as dist
 from okvis2x_tpu_torch.cameras import pinhole
 from okvis2x_tpu_torch.factors import robust
@@ -62,16 +63,18 @@ def optimize_pose_graph(
     edges_sqrt_info: np.ndarray,  # (R, 6, 6)
     iterations: int = 10,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ):
     """Pose-graph LM with Huber (scale 10) on the edges: one inconsistent
     high-information edge must not fold the graph.  Returns the optimised
-    (K, 7) poses as numpy and the final cost.
+    (K, 7) poses as numpy and the final cost.  `device` None is the first
+    CUDA device (`okvis2x_tpu_torch.default_device`).
 
     The graph is padded as the JAX package pads it, to K = 64 nodes or a
     multiple of 256, so the solver takes the same branch: the reduced
     system (P = 15K + 10) is inverted at K = 64 and solved by conjugate
     gradients at K >= 256, whatever the number of real nodes."""
+    device = default_device() if device is None else torch.device(device)
     K0 = T_WS.shape[0]
     R0 = len(edges_i)
     K = 64 if K0 <= 64 else 256 * ((K0 + 255) // 256)

@@ -19,6 +19,10 @@ library under ``build/okvis2x_tpu_torch/`` at the root of the checkout and
 loaded with ctypes.  Each wrapper counts its kernel launches in ``.launches``
 and by calling site in ``.site_launches`` ("assoc": per-frame association,
 "bow": vocabulary descent, "lc_match": loop-closure matching).
+
+Both are thread-safe: the place-recognition worker launches the fused kernel
+from a thread of its own, so the first build runs under a lock and the
+counts are updated under another.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -50,10 +55,17 @@ class _Kernel:
     def __init__(self):
         self.lib = None
         self.build_log = ""
+        self._lock = threading.Lock()
 
     def load(self):
         if self.lib is not None:
             return self.lib
+        with self._lock:  # one build, whichever thread launches first
+            if self.lib is None:
+                self.lib = self._build_and_load()
+        return self.lib
+
+    def _build_and_load(self):
         digest = hashlib.sha1(b"".join(p.read_bytes() for p in _SRCS)
                               + " ".join(NVCC_FLAGS).encode())
         out = BUILD_DIR / f"libokvis_hamming_{digest.hexdigest()[:12]}.so"
@@ -66,7 +78,8 @@ class _Kernel:
             if nvcc is None:
                 raise RuntimeError("nvcc not found: cannot build csrc/hamming*.cu")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            # unique per process and thread: threads share the pid
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             res = subprocess.run(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _SRCS)],
                 capture_output=True, text=True,
@@ -93,11 +106,18 @@ class _Kernel:
         lib.okvis_hamming_match.restype = ctypes.c_int
         lib.okvis_cuda_error_string.argtypes = [ctypes.c_int]
         lib.okvis_cuda_error_string.restype = ctypes.c_char_p
-        self.lib = lib
         return lib
 
 
 KERNEL = _Kernel()
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(fn, site: str):
+    """One launch of `fn`'s kernel from `site`, counted under a lock."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        fn.site_launches[site] = fn.site_launches.get(site, 0) + 1
 
 
 def _check_packed(x: torch.Tensor, name: str):
@@ -152,9 +172,7 @@ def hamming_matrix_packed(packed_q: torch.Tensor, packed_d: torch.Tensor,
     if err != 0:
         msg = lib.okvis_cuda_error_string(err).decode()
         raise RuntimeError(f"hamming kernel launch failed: {msg} ({err})")
-    hamming_matrix_packed.launches += 1
-    by_site = hamming_matrix_packed.site_launches
-    by_site[site] = by_site.get(site, 0) + 1
+    _count_launch(hamming_matrix_packed, site)
     return out
 
 
@@ -310,9 +328,7 @@ def hamming_match(q, vq, d, vd, allowed=None, seg=None, row_seg=None,
     if err != 0:
         msg = lib.okvis_cuda_error_string(err).decode()
         raise RuntimeError(f"hamming match kernel launch failed: {msg} ({err})")
-    hamming_match.launches += 1
-    by_site = hamming_match.site_launches
-    by_site[site] = by_site.get(site, 0) + 1
+    _count_launch(hamming_match, site)
     return row_min, row_arg, col_arg
 
 
@@ -321,9 +337,10 @@ hamming_match.site_launches = {}
 
 
 def reset_launch_counts():
-    for fn in (hamming_matrix_packed, hamming_match):
-        fn.launches = 0
-        fn.site_launches.clear()
+    with _COUNT_LOCK:
+        for fn in (hamming_matrix_packed, hamming_match):
+            fn.launches = 0
+            fn.site_launches.clear()
 
 
 def best_matches_packed(packed_q, packed_d, max_dist=60):

@@ -9,30 +9,45 @@ Stages per frame:
      rig-stereo initialisation with an epipolar gate, motion stereo against
      the last keyframe; every Hamming distance comes from the packed
      descriptor kernel (``ops.hamming``);
-  4. keyframe decision by disc-coverage overlap (host);
-  5. gated window solve (estimator);
-  6. synchronous loop closure on keyframes: vocabulary words and a tf-idf
-     query (``frontend/bow.py``), mutual matching against up to three
-     candidates on the Hamming kernel, batched non-central RANSAC
-     (``frontend/ransac.py``), a drift-budget gate, then the loop edge and
-     an in-line pose-graph solve, the candidate held in the window,
-     landmark merges and a window re-solve (estimator);
-  7. marginalisation.
+  4. pose refinement (`pose_refine`): a 3-iteration pose-only solve with
+     the landmarks held, then the chi2 outlier cut of the frame's
+     observations (`reject_outliers`);
+  5. keyframe decision by disc-coverage overlap (host);
+  6. gated window solve (estimator).  With `pipelined_solve` it is built
+     here and collected one frame later (`_collect_pending`): the next
+     frame associates against the one-frame-stale map, and the state log
+     entry, the IMU prediction until then, is corrected when it lands;
+  7. loop closure on keyframes: vocabulary words and a tf-idf query
+     (``frontend/bow.py``), mutual matching against up to three candidates
+     on the Hamming kernel, batched non-central RANSAC
+     (``frontend/ransac.py``), then on the frame thread a drift-budget
+     gate, the loop edge, the candidate held in the window and landmark
+     merges.  With `async_place_recognition` the query and verification
+     run on a worker thread (its own CUDA stream on a card) and their
+     proposals are applied on a later frame; with `async_loop_closure` the
+     pose graph is solved on a background thread
+     (``graph/fullgraph.py``) and synchronised on a later frame, else in
+     line, followed by a window re-solve;
+  8. marginalisation.
 
-After the last frame, `finish()` and `est.final_ba()` give the refined
-trajectory (`est.full_trajectory()`).
+After the last frame, `finish()` (collect the pending solve, drain the
+worker, join the background optimisation) and `est.final_ba()` give the
+refined trajectory (`est.full_trajectory()`).
 
-The asynchronous place-recognition worker and background full graph,
-online vocabulary training, relocalisation against loaded maps, the
-deferred fused frontend, the pipelined solve, the inline pose refinement,
-semantic weighting and depth input are not part of the port yet; enabling
-them raises ``NotImplementedError``.
+Online vocabulary training, relocalisation against loaded maps, the
+deferred fused frontend, the background complete-factor-graph BA, semantic
+weighting and depth input are not part of the port yet; enabling them
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
+import queue
+import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -44,6 +59,7 @@ from okvis2x_tpu_torch.cameras import pinhole, pinhole_np
 from okvis2x_tpu_torch.core import se3, se3np
 from okvis2x_tpu_torch.frontend import bow, descriptor, detector, matcher, ransac, triangulation
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, SlidingWindowEstimator
+from okvis2x_tpu_torch.graph.fullgraph import FullGraphOptimizer
 from okvis2x_tpu_torch.ops import hamming
 from okvis2x_tpu_torch.utils import timing
 
@@ -68,12 +84,12 @@ class PipelineConfig:
     quality_lost: float = 0.01
     quality_marginal: float = 0.3
     quality_grid: int = 8
-    # loop closure (synchronous): the shipped vocabulary when vocab_path is
-    # None; candidates are the top BoW retrievals (a third one only above
-    # p_dbow or p_prominence x the retrieval mean), verified by RANSAC with
+    # loop closure: the shipped vocabulary when vocab_path is None;
+    # candidates are the top BoW retrievals (a third one only above p_dbow
+    # or p_prominence x the retrieval mean), verified by RANSAC with
     # loop_min_inliers, accepted within drift_percentage of the path since
     # the candidate, and at most one per loop_cooldown_m of path
-    do_loop_closures: bool = False
+    do_loop_closures: bool = True
     vocab_path: Optional[str] = None
     p_dbow: float = 0.4
     p_prominence: float = 1.15
@@ -82,32 +98,35 @@ class PipelineConfig:
     loop_cooldown_m: float = 3.0
     drift_percentage: float = 1.35  # % of the distance travelled
     num_loopclosure_frames: int = 3  # held in the window for merging
+    # keyframe query and verification on a worker thread; proposals are
+    # applied on the frame thread at a later frame
+    async_place_recognition: bool = True
+    # the pose graph of an accepted closure solved on a background thread
+    # and synchronised on a later frame (else in line)
+    async_loop_closure: bool = False
+    full_graph_iterations: int = 15
+    # the background complete-factor-graph BA below this many keyframes
+    # (not ported: only 0)
+    full_ba_threshold: int = 0
+    # 3-iteration pose-only solve and outlier cut before the window solve
+    pose_refine: bool = True
+    # the window solve collected one frame later
+    pipelined_solve: bool = True
     # features of the JAX package that the port does not have yet: each
     # must stay at its "off" value
-    async_place_recognition: bool = True
-    async_loop_closure: bool = False
-    pose_refine: bool = False
-    pipelined_solve: bool = False
     deferred_frontend: bool = False
     segmentation: str = "off"
 
     def check_ported(self):
-        for name in ("pose_refine", "pipelined_solve", "deferred_frontend"):
-            if getattr(self, name):
-                raise NotImplementedError(f"PipelineConfig.{name} is not ported yet")
+        if self.deferred_frontend:
+            raise NotImplementedError("PipelineConfig.deferred_frontend is not ported yet")
         if self.segmentation != "off":
             raise NotImplementedError("semantic keypoint weighting is not ported yet")
-        if self.do_loop_closures:
-            if self.async_place_recognition:
-                raise NotImplementedError(
-                    "the asynchronous place-recognition worker is not ported yet: "
-                    "set async_place_recognition=False")
-            if self.async_loop_closure:
-                raise NotImplementedError(
-                    "the background full-graph optimiser is not ported yet: "
-                    "set async_loop_closure=False")
-            if self.vocab_path == "":
-                raise NotImplementedError("online vocabulary training is not ported yet")
+        if self.full_ba_threshold > 0:
+            raise NotImplementedError("the background complete-factor-graph BA "
+                                      "(full_ba_threshold > 0) is not ported yet")
+        if self.do_loop_closures and self.vocab_path == "":
+            raise NotImplementedError("online vocabulary training is not ported yet")
 
 
 # stereo / motion-stereo initialisations accepted per frame (the first
@@ -159,6 +178,8 @@ class VioPipeline:
         self.last_quality_fraction = 0.0
         self.path_length = 0.0
         self._last_solved_T = None
+        # pipelined solve: the handle of the previous frame's window solve
+        self._pending = None
 
         # loop closure: keyframe records (descriptors, landmark snapshot,
         # pose), the vocabulary and its database, held loop-closure frames
@@ -177,6 +198,27 @@ class VioPipeline:
                     "not ported yet")
             self.vocab = bow.HierVocabulary.load(path, device=self.device)
             self.bow_db = bow.BowDatabase(k=self.vocab.n_words)
+        # asynchronous place recognition: the worker takes keyframes from
+        # _lc_queue and puts proposals on _lc_results; _lc_active is held
+        # while it runs an item, so the frame thread never moves record
+        # snapshots under a verification
+        self._lc_active = threading.Lock()
+        self._lc_thread = None
+        self._lc_queue = None
+        self._lc_results = None
+        self._lc_stream = None
+        self._lc_skipped = 0  # keyframes demoted to index-only under backlog
+        if cfg.do_loop_closures and cfg.async_place_recognition:
+            self._lc_queue = queue.Queue()
+            self._lc_results = queue.Queue()
+            if self.device.type == "cuda":
+                self._lc_stream = torch.cuda.Stream(self.device)
+            self._lc_thread = threading.Thread(target=self._lc_worker_loop,
+                                               name="place-recognition", daemon=True)
+            self._lc_thread.start()
+        self.full_graph = FullGraphOptimizer(iterations=cfg.full_graph_iterations,
+                                             dtype=dtype,
+                                             full_ba_threshold=cfg.full_ba_threshold)
 
     # ---------------------------------------------------------------- stages
     @staticmethod
@@ -566,7 +608,10 @@ class VioPipeline:
     def _record_keyframe(self, fid: int, t: float, frame_data: List[FrameData]):
         """Keep what place recognition needs of a keyframe.  Its descriptors
         go to the device here, once: the vocabulary descent and every later
-        match against it read them there."""
+        match against it read them there.  On a card, the event `ready`
+        marks their copies on the frame thread's stream, which the worker's
+        stream waits for (records are made in order on one stream, so one
+        wait covers every earlier record too)."""
         dev = self.device
         rec = dict(t=t, T_WS=self.est.get_state(fid).T_WS.copy(), path=self.path_length)
         for c, fd in enumerate(frame_data[:2]):
@@ -579,6 +624,9 @@ class VioPipeline:
                                                   device=dev),
                 f"valid{sfx}_d": torch.as_tensor(fd.valid, device=dev),
             })
+        if dev.type == "cuda":
+            rec["ready"] = torch.cuda.Event()
+            rec["ready"].record()
         self.kf_records[fid] = rec
 
     def _keyframe_words(self, rec: dict) -> np.ndarray:
@@ -603,7 +651,10 @@ class VioPipeline:
         candidate policy, RANSAC verification.  BoW proposes, geometry
         decides: the top two retrievals are always verified, a third only
         when its score clears p_dbow or stands out from the retrieval bulk.
-        Returns a proposal dict or None."""
+        It touches no estimator state (`cur_p`, the position when the
+        keyframe was queued, only sets the RANSAC depth prior), so it runs
+        on the recognition worker as well.  Returns a proposal dict or
+        None."""
         cfg = self.cfg
         words = self._keyframe_words(rec)
         res = self.bow_db.query(words, rec["valid"], exclude=exclude, top=8)
@@ -652,14 +703,95 @@ class VioPipeline:
         if correction > cfg.drift_percentage / 100.0 * dist + 0.2:
             return False
         sqrt_info = np.eye(6) * (10.0 * np.sqrt(prop["n_inl"]))
-        if not self.est.close_loop(fid, cand_fid, T_cand_cur, sqrt_info):
-            return False
-        self._hold_loopclosure_frame(cand_fid)
-        self._merge_loop_landmarks(rec, cand, prop["pairs"])
+        if self.cfg.async_loop_closure:
+            # keep the loop edge now, solve the pose graph in the
+            # background, synchronise on a later frame
+            if not self.est.add_loop_edge(fid, cand_fid, T_cand_cur, sqrt_info):
+                return False
+            self._hold_loopclosure_frame(cand_fid)
+            self._merge_loop_landmarks(rec, cand, prop["pairs"])
+            self.full_graph.dispatch(self.est)
+        else:
+            if not self.est.close_loop(fid, cand_fid, T_cand_cur, sqrt_info):
+                return False
+            self._hold_loopclosure_frame(cand_fid)
+            self._merge_loop_landmarks(rec, cand, prop["pairs"])
+            self._refresh_kf_poses()
         self.n_loop_closures += 1
         self._lc_last_path = self.path_length
-        self._refresh_kf_poses()
         return True
+
+    # -- asynchronous place recognition: the keyframe query and verification
+    # run on a worker thread; the graph surgery stays on the frame thread
+    def _lc_worker_loop(self):
+        """Take keyframes off `_lc_queue` until None; put proposals on
+        `_lc_results`.  On a card every launch goes to the worker's stream.
+        A failed item is logged and the worker goes on, as in the JAX
+        package."""
+        with torch.cuda.stream(self._lc_stream):
+            while True:
+                item = self._lc_queue.get()
+                if item is None:
+                    return
+                try:
+                    with self._lc_active, timing.Timer("4.2 PlaceRecognition"):
+                        rec = self.kf_records.get(item["fid"])
+                        if rec is None:
+                            continue
+                        if self._lc_stream is not None:
+                            self._lc_stream.wait_event(rec["ready"])
+                        if item["query"]:
+                            prop = self._lc_propose(item["fid"], rec, item["exclude"],
+                                                    item["cur_p"])
+                        else:  # backlog: index the keyframe, skip the verification
+                            self.bow_db.add(item["fid"], self._keyframe_words(rec),
+                                            rec["valid"])
+                            prop = None
+                        if prop is not None:
+                            self._lc_results.put(prop)
+                except Exception:  # noqa: BLE001 — logged; recognition must not stop SLAM
+                    logging.exception("place-recognition worker failed")
+
+    def _lc_enqueue(self, fid: int, t: float, index_only: bool = False):
+        """Queue a recorded keyframe for the worker.  Under a backlog of 6
+        items a keyframe is only indexed, but never more than 2 in a row:
+        dropping every query under sustained load would switch loop closure
+        off."""
+        exclude = {f for f, r in self.kf_records.items() if t - r["t"] < self.cfg.loop_min_gap_s}
+        try:
+            cur_p = self.est.get_state(fid).T_WS[:3].copy()
+        except KeyError:
+            cur_p = self.kf_records[fid]["T_WS"][:3].copy()
+        query = not index_only and (self._lc_queue.qsize() < 6 or self._lc_skipped >= 2)
+        if not index_only and not query:
+            self._lc_skipped += 1
+        elif query:
+            self._lc_skipped = 0
+        self._lc_queue.put(dict(fid=fid, t=t, exclude=exclude, cur_p=cur_p, query=query))
+
+    def _lc_poll(self) -> bool:
+        """Apply the proposals the worker finished (frame thread)."""
+        looped = False
+        while True:
+            try:
+                prop = self._lc_results.get_nowait()
+            except queue.Empty:
+                return looped
+            looped = self._lc_accept(prop) or looped
+
+    def _lc_drain(self):
+        """Let the worker finish every queued keyframe, then stop it."""
+        if self._lc_thread is None:
+            return
+        self._lc_queue.put(None)
+        self._lc_thread.join(timeout=60.0)
+        if self._lc_thread.is_alive():
+            # keep the handle: finish() must not apply results while the
+            # worker may still touch the records
+            logging.warning("place-recognition worker did not drain within 60 s; "
+                            "skipping its remaining results")
+            return
+        self._lc_thread = None
 
     def _hold_loopclosure_frame(self, cand_fid: int):
         """Bring the recognised keyframe and its landmarks back into the
@@ -704,27 +836,41 @@ class VioPipeline:
     def _refresh_kf_poses(self):
         """After a correction, move every record's pose and landmark
         snapshot rigidly by its keyframe's pose change, so later loop edges
-        do not embed the correction as error."""
-        for f2, r2 in self.kf_records.items():
-            st = self.est.archive_frames.get(f2)
-            if st is None:
-                try:
-                    st = self.est.get_state(f2)
-                except KeyError:
+        do not embed the correction as error.  Never under a verification
+        running on the worker (it would read snapshots of mixed epochs)."""
+        with self._lc_active:
+            for f2, r2 in self.kf_records.items():
+                st = self.est.archive_frames.get(f2)
+                if st is None:
+                    try:
+                        st = self.est.get_state(f2)
+                    except KeyError:
+                        continue
+                T_old = np.asarray(r2["T_WS"])
+                T_new = st.T_WS.copy()
+                if np.allclose(T_old, T_new, atol=1e-12):
                     continue
-            T_old = np.asarray(r2["T_WS"])
-            T_new = st.T_WS.copy()
-            if np.allclose(T_old, T_new, atol=1e-12):
-                continue
-            dT = se3np.se3_multiply(T_new, se3np.se3_inverse(T_old))
-            R = se3np.quat_to_matrix(dT[3:7])
-            for key in ("lm_pos", "lm_pos1"):
-                lm = r2.get(key)
-                if lm is None:
-                    continue
-                ok = np.isfinite(lm[:, 0])
-                lm[ok] = lm[ok] @ R.T + dT[:3]
-            r2["T_WS"] = T_new
+                dT = se3np.se3_multiply(T_new, se3np.se3_inverse(T_old))
+                R = se3np.quat_to_matrix(dT[3:7])
+                for key in ("lm_pos", "lm_pos1"):
+                    lm = r2.get(key)
+                    if lm is None:
+                        continue
+                    ok = np.isfinite(lm[:, 0])
+                    lm[ok] = lm[ok] @ R.T + dT[:3]
+                r2["T_WS"] = T_new
+
+    def synchronise_full_graph(self, wait: bool = False) -> bool:
+        """Apply a finished background pose-graph optimisation, if any (with
+        `wait`, after joining the one in flight)."""
+        if wait:
+            self.full_graph.join()
+        if not self.full_graph.is_loop_closure_available:
+            return False
+        if self.full_graph.synchronise(self.est):
+            self._refresh_kf_poses()
+            return True
+        return False
 
     def _lc_cam_keys(self, rec: dict):
         return [0, 1] if "packed1" in rec else [0]
@@ -836,32 +982,98 @@ class VioPipeline:
     def add_imu_measurement(self, t, gyr, acc):
         self.est.add_imu_measurement(t, gyr, acc)
 
-    def _finish_frame(self, fid: int, t: float, is_kf: bool) -> bool:
-        """Post-solve stages: descriptor refresh, path length, loop closure
-        on keyframes (then a window re-solve), marginalisation, release of
-        held loop-closure frames the window has moved past, pruning of dead
+    def _project_landmarks(self, cam_idx: int, T_WS: np.ndarray, hp: np.ndarray):
+        """Host projection of homogeneous world landmarks into camera
+        `cam_idx` at body pose `T_WS`: (uv (n, 2), visible (n,))."""
+        T_CW = se3np.se3_multiply(se3np.se3_inverse(self.T_SC[cam_idx]),
+                                  se3np.se3_inverse(np.asarray(T_WS)))
+        hp_C = se3np.se3_apply_homogeneous(T_CW, np.asarray(hp))
+        return pinhole_np.project_homogeneous(self.np_cameras[cam_idx], hp_C)
+
+    def reject_outliers(self, fid: int) -> int:
+        """Drop the observations of frame `fid` that project outside their
+        camera or farther than the chi2 gate from their keypoint; returns
+        how many."""
+        est = self.est
+        f = est.get_state(fid)
+        idxs = np.nonzero(est.obs_fid == fid)[0]
+        if len(idxs) == 0:
+            return 0
+        gate = self.cfg.chi2_px * est.cfg.keypoint_sigma_px * 3
+        bad = []
+        for c in range(self.num_cams):
+            sel = idxs[est.obs_cam[idxs] == c]
+            if len(sel) == 0:
+                continue
+            rows = np.array([est.lm_index[lid] for lid in est.obs_lid[sel]])
+            uv_pred, vis = self._project_landmarks(c, f.T_WS, est.hp_W[rows])
+            err = np.linalg.norm(uv_pred - est.obs_uv[sel], axis=-1)
+            bad.extend(sel[(~vis) | (err > gate)].tolist())
+        if bad:
+            keep = np.ones(len(est.obs_fid), bool)
+            keep[bad] = False
+            est._keep_obs(keep)
+        return len(bad)
+
+    def _collect_pending(self):
+        """Collect the previous frame's window solve, feed its wall time to
+        the realtime budget, fold in a finished background optimisation
+        (after the window writeback, so the two corrections stay ordered)
+        and run the frame's post-solve stages.  No-op when nothing is
+        pending."""
+        if self._pending is None:
+            return
+        pend, self._pending = self._pending, None
+        t0 = time.perf_counter()
+        with timing.Timer("2.5 CollectSolve"):
+            self.est.optimise_gated_collect(pend["h"])
+        self.est.adapt_realtime_budget(time.perf_counter() - t0)
+        self.synchronise_full_graph()
+        self._finish_frame(pend["fid"], pend["t"], pend["is_kf"], pend["log_idx"])
+
+    def _finish_frame(self, fid: int, t: float, is_kf: bool, log_idx: Optional[int] = None) -> bool:
+        """Post-solve stages: descriptor refresh, path length, the solved
+        pose into state-log entry `log_idx` (a pipelined frame logged its
+        prediction), loop closure (recognition results applied; keyframes
+        recorded, then queued for the worker or proposed in line; a window
+        re-solve after a closure), marginalisation, release of held
+        loop-closure frames the window has moved past, pruning of dead
         per-frame data.  Returns whether a loop closed."""
         est = self.est
+        cfg = self.cfg
         frame_data = self.frames.get(fid)
         if frame_data is not None:
             # refresh landmark descriptors with the freshest observation
             for fd in frame_data:
                 for k in np.nonzero(fd.lid >= 0)[0]:
                     self.lm_desc[fd.lid[k]] = fd.packed[k]
-        f = est.get_state(fid)
-        if self._last_solved_T is not None:
-            self.path_length += float(np.linalg.norm(f.T_WS[:3] - self._last_solved_T[:3]))
-        self._last_solved_T = f.T_WS.copy()
+        try:
+            f = est.get_state(fid)
+        except KeyError:
+            f = None
+        if f is not None:
+            if self._last_solved_T is not None:
+                self.path_length += float(np.linalg.norm(f.T_WS[:3] - self._last_solved_T[:3]))
+            self._last_solved_T = f.T_WS.copy()
+            if log_idx is not None and log_idx < len(self.states_log):
+                self.states_log[log_idx] = (t, f.T_WS.copy())
 
         looped = False
-        if is_kf and self.cfg.do_loop_closures and frame_data is not None:
+        use_async_pr = self._lc_thread is not None  # until finish() stops the worker
+        if use_async_pr:
+            # proposals land a few frames after their keyframe was queued
+            with timing.Timer("2.8 LoopClosure"):
+                looped = self._lc_poll()
+        if is_kf and cfg.do_loop_closures and frame_data is not None:
             # in the cooldown after a closure keyframes are recorded and
             # indexed, but not queried
-            in_cooldown = self.path_length - self._lc_last_path < self.cfg.loop_cooldown_m
+            in_cooldown = self.path_length - self._lc_last_path < cfg.loop_cooldown_m
             with timing.Timer("2.8 LoopClosure"):
                 self._record_keyframe(fid, t, frame_data)
-                if not in_cooldown:
-                    looped = self._attempt_loop_closure(fid, t)
+                if use_async_pr:
+                    self._lc_enqueue(fid, t, index_only=in_cooldown)
+                elif not in_cooldown:
+                    looped = self._attempt_loop_closure(fid, t) or looped
                 else:
                     rec = self.kf_records[fid]
                     self.bow_db.add(fid, self._keyframe_words(rec), rec["valid"])
@@ -887,27 +1099,51 @@ class VioPipeline:
         return looped
 
     def process_frame(self, t: float, images: List[np.ndarray], depth_images=None):
+        """One stereo frame.  Returns the frame's info; with `pipelined_solve`
+        its pose is the IMU prediction (the solved pose replaces it in
+        `states_log` when the solve is collected) and `loop_closure` is
+        False (closures are applied while collecting the previous frame)."""
         if depth_images is not None:
             raise NotImplementedError("depth input is not ported yet")
         est = self.est
+        if self._pending is None:
+            # fold a finished background optimisation in before the window
+            # grows (with a solve pending this happens in _collect_pending)
+            self.synchronise_full_graph()
         with timing.Timer("2.1 AddState"):
             fid = est.add_state(t)
         f = est.get_state(fid)
         with timing.Timer("2.2 DetectDescribe"):
             frame_data = self.detect_and_describe(images, f.T_WS)
         self.frames[fid] = frame_data
+        # with a solve pending, association matches against the map of one
+        # frame ago; the 40 px match radius absorbs the prediction error
         with timing.Timer("2.3 Associate"):
             n_map, n_stereo, n_motion = self.associate(fid, frame_data)
+        if n_map >= 8 and self.cfg.pose_refine:
+            self._collect_pending()  # the inline solve needs the window fresh
+            with timing.Timer("2.4 PoseOptimise"):
+                est.optimise(iterations=3, pose_only=True)
+                self.reject_outliers(fid)
         quality = self._tracking_quality(frame_data)
         is_kf = self.need_keyframe(frame_data)
         est.set_keyframe(fid, is_kf)
         if is_kf:
             self.last_kf_fid = fid
+        # the previous frame's solve, then this frame's prediction again from
+        # the corrected state
+        self._collect_pending()
         est.repredict_latest()
         gate_px = self.cfg.chi2_px * est.cfg.keypoint_sigma_px * 3
-        with timing.Timer("2.6 OptimiseGated"):
-            est.optimise_gated(fid, gate_px)
-        looped = self._finish_frame(fid, t, is_kf)
+        looped = False
+        if self.cfg.pipelined_solve:
+            with timing.Timer("2.6 DispatchSolve"):
+                h = est.optimise_gated_dispatch(fid, gate_px)
+            self._pending = dict(h=h, fid=fid, t=t, is_kf=is_kf, log_idx=len(self.states_log))
+        else:
+            with timing.Timer("2.6 OptimiseGated"):
+                est.optimise_gated(fid, gate_px)
+            looped = self._finish_frame(fid, t, is_kf)
         f = est.get_state(fid)
         self.states_log.append((t, f.T_WS.copy()))
         return dict(
@@ -920,6 +1156,15 @@ class VioPipeline:
         raise NotImplementedError("multi-session relocalisation is not ported yet")
 
     def finish(self):
-        """Dataset end.  The synchronous path keeps no solve, recognition
-        result or background optimisation in flight, so there is nothing to
-        collect; `est.final_ba()` may follow."""
+        """Dataset end: collect the pending window solve, let the
+        recognition worker finish its queue and stop, apply its last
+        proposals (then a window re-solve and a background dispatch), and
+        join and apply the background optimisation; `est.final_ba()` may
+        follow."""
+        self._collect_pending()
+        self._lc_drain()
+        worker_live = self._lc_thread is not None and self._lc_thread.is_alive()
+        if self._lc_results is not None and not worker_live and self._lc_poll():
+            self.est.optimise()
+            self.full_graph.dispatch(self.est)
+        self.synchronise_full_graph(wait=True)

@@ -29,6 +29,7 @@ from okvis2x_tpu_torch.core import se3
 from okvis2x_tpu_torch.factors import imu_factor, priors, reprojection, robust
 from okvis2x_tpu_torch.imu.preintegration import ImuParams
 from okvis2x_tpu_torch.solver.problem import BAProblem, apply_delta, free_mask
+from okvis2x_tpu_torch.utils import forward_ad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +142,11 @@ def _linearize_reprojection(p: BAProblem, cams: StackedCameras):
         cam = Camera(kc, dp, cams.width, cams.height, cams.model)
         return reprojection.linearize(cam, T_WS, T_SC, hp, uv, si)
 
-    r, Jp, Jh, Je, valid = vmap(one)(
-        p.T_WS[f], p.T_SC[c], p.hp_W[l], p.obs_uv, p.obs_sqrt_info,
-        cams.fxfycxcy[c], cams.dist_params[c],
-    )
+    with forward_ad.LOCK:
+        r, Jp, Jh, Je, valid = vmap(one)(
+            p.T_WS[f], p.T_SC[c], p.hp_W[l], p.obs_uv, p.obs_sqrt_info,
+            cams.fxfycxcy[c], cams.dist_params[c],
+        )
     N = r.shape[0]
     Jrow = torch.zeros((N, 2, P), dtype=r.dtype, device=r.device)
     ar6 = torch.arange(6, device=r.device)
@@ -173,9 +175,10 @@ def _linearize_imu(p: BAProblem, cfg: SolverConfig):
         return r, torch.cat([J0, Jsb0], dim=1), torch.cat([J1, Jsb1], dim=1)
 
     i, j = p.imu_i, p.imu_j
-    r, Ji, Jj = vmap(one)(
-        p.T_WS[i], p.sb[i], p.T_WS[j], p.sb[j], p.imu_pre, p.imu_sqrt_info
-    )
+    with forward_ad.LOCK:
+        r, Ji, Jj = vmap(one)(
+            p.T_WS[i], p.sb[i], p.T_WS[j], p.sb[j], p.imu_pre, p.imu_sqrt_info
+        )
     return r, [(Ji, i), (Jj, j)], p.imu_valid
 
 
@@ -192,7 +195,8 @@ def _linearize_priors(p: BAProblem):
         return r, J
 
     ks = torch.arange(p.K, device=dev)
-    r_pp, Jp = vmap(pose_one)(p.T_WS, p.pose_prior_T, p.pose_prior_sqrt_info)
+    with forward_ad.LOCK:
+        r_pp, Jp = vmap(pose_one)(p.T_WS, p.pose_prior_T, p.pose_prior_sqrt_info)
     r_sb = priors.speed_bias_prior_residual(p.sb_prior, p.sb, p.sb_prior_sqrt_info)
     return ((r_pp, [(_pad15(Jp, 0), ks)], p.pose_prior_valid),
             (r_sb, [(_pad15(p.sb_prior_sqrt_info, 6), ks)], p.sb_prior_valid))

@@ -24,7 +24,8 @@ torch.set_num_threads(1)
 
 @functools.lru_cache(maxsize=None)
 def vocabs():
-    return jbow.HierVocabulary.load(str(bow.DEFAULT_VOCAB)), bow.HierVocabulary.load()
+    return (jbow.HierVocabulary.load(str(bow.DEFAULT_VOCAB)),
+            bow.HierVocabulary.load(device="cpu"))
 
 
 def random_words(rng, n):

@@ -151,7 +151,7 @@ def test_cuda_vocabulary_words_match_cpu(cuda):
     rng = np.random.default_rng(3)
     packed = words(704, rng)
     valid = torch.from_numpy(rng.random(704) > 0.2)
-    vocab = bow.HierVocabulary.load()
+    vocab = bow.HierVocabulary.load(device="cpu")
     ref = bow.assign_packed(packed, valid, vocab)
     n0 = hamming.hamming_match.site_launches.get("bow", 0)
     m0 = hamming.hamming_matrix_packed.launches

@@ -214,7 +214,8 @@ def test_row_segments_match_jax_assign_packed(n, seed):
     """Branches with one segment, then leaves with `row_seg`, on the shipped
     vocabulary, against `okvis2x_tpu.frontend.bow.assign_packed`."""
     rng = np.random.default_rng(seed)
-    jv, tv = jbow.HierVocabulary.load(str(bow.DEFAULT_VOCAB)), bow.HierVocabulary.load()
+    jv = jbow.HierVocabulary.load(str(bow.DEFAULT_VOCAB))
+    tv = bow.HierVocabulary.load(device="cpu")
     leaves = tv.leaves.numpy().view(np.uint32)
     packed = leaves[rng.integers(0, len(leaves), n)].copy()  # near leaves: ties are likely
     packed[n // 2:] ^= words(n - n // 2, rng) & words(n - n // 2, rng) & words(n - n // 2, rng)
@@ -332,7 +333,49 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     hamming.match_packed_mutual(q, v, q, v)
     hamming.best_matches_packed(q, d)
     matcher.match_masked(q, v, q, v, torch.ones((16, 16), dtype=torch.bool), mutual=True)
-    bow.assign_packed(q, v, bow.HierVocabulary.load())
+    bow.assign_packed(q, v, bow.HierVocabulary.load(device="cpu"))
     assert hamming.hamming_match.launches == n0
     assert hamming.hamming_match.site_launches == s0
     assert hamming.hamming_matrix_packed.launches == m0
+
+
+def test_kernel_library_builds_once_across_threads(monkeypatch):
+    """Threads that launch first together (the frame thread and the
+    place-recognition worker) build and load the library once."""
+    import threading
+    import time
+
+    calls = []
+
+    def slow_build():
+        calls.append(threading.get_ident())
+        time.sleep(0.05)
+        return object()
+    kernel = hamming._Kernel()
+    monkeypatch.setattr(kernel, "_build_and_load", slow_build)
+    libs = []
+    threads = [threading.Thread(target=lambda: libs.append(kernel.load())) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert len(calls) == 1 and len(libs) == 8 and len({id(x) for x in libs}) == 1
+
+
+def test_launch_counts_add_up_across_threads():
+    """Launch counts bumped from several threads at once add up exactly."""
+    import threading
+
+    def fn():
+        pass
+    fn.launches, fn.site_launches = 0, {}
+
+    def bump(site):
+        for _ in range(20000):
+            hamming._count_launch(fn, site)
+    threads = [threading.Thread(target=bump, args=(s,)) for s in ("assoc", "bow") * 4]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert fn.launches == 160000 and fn.site_launches == {"assoc": 80000, "bow": 80000}

@@ -104,7 +104,8 @@ def test_optimize_pose_graph_matches_jax(K, iters, atol, cost_rtol):
     the port is held to 1e-4 there."""
     args = drifted_circle(K, np.random.default_rng(K))
     ref, cost_j = jpg.optimize_pose_graph(*args[:6], iterations=iters)
-    got, cost_t = posegraph.optimize_pose_graph(*args[:6], iterations=iters)
+    got, cost_t = posegraph.optimize_pose_graph(*args[:6], iterations=iters,
+                                           device="cpu")
     np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=atol)
     assert abs(cost_t - cost_j) <= cost_rtol * max(1.0, abs(cost_j))
     if K == 40:  # the loop closes: the drift is gone
@@ -299,13 +300,13 @@ def test_lc_match_matches_jax():
 
 # ------------------------------------------------------- what is not ported
 @pytest.mark.parametrize("unported", [
-    dict(async_place_recognition=True), dict(async_loop_closure=True), dict(vocab_path=""),
-    "load_component", "pose_only",
+    dict(vocab_path=""), dict(full_ba_threshold=64), dict(deferred_frontend=True),
+    "load_component",
 ])
 def test_unported_loop_closure_features_raise(unported):
-    """The asynchronous worker, the background full graph, online vocabulary
-    training, relocalisation and the pose-only refinement raise instead of
-    running something else."""
+    """Online vocabulary training, the background complete-factor-graph BA,
+    the deferred frontend and relocalisation raise instead of running
+    something else."""
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig as TPipelineConfig
 
     cam = convert.camera(jax.tree.map(np.asarray, make_jest()[1]))
@@ -317,7 +318,4 @@ def test_unported_loop_closure_features_raise(unported):
             VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
         else:
             pipe = VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**sync), device="cpu")
-            if unported == "load_component":
-                pipe.load_component("map.npz")
-            else:
-                pipe.est.optimise(pose_only=True)
+            pipe.load_component("map.npz")
