@@ -22,7 +22,7 @@
    The fused kernel is also held against its plain version from a second
    host thread on a CUDA stream of its own, as the place-recognition worker
    launches it;
-4. VIO: renders 40 frames (2 s) of the synthetic circuit at the EuRoC
+4. VIO: renders 20 frames (1 s) of the synthetic circuit at the EuRoC
    operating point (752x480 stereo at 20 Hz, 200 Hz IMU, 704 keypoints) in
    memory and feeds them to `VioPipeline` on the GPU under the JAX package's
    default `PipelineConfig` (pose refinement, pipelined solve, loop closure
@@ -37,23 +37,34 @@
    the caller that wants the distance matrix: the matrix kernel must have
    been launched and the matches must equal the CPU's;
 6. synchronous loop closure: the same operating point on a circuit of
-   radius 0.8 m (one lap in about 125 frames) with the synchronous,
-   non-pipelined path (BoW place recognition on the shipped vocabulary,
-   loop matching, non-central RANSAC, in-line pose-graph solve), then
-   `finish()` and the final BA: at least one closure must be accepted, the
-   fused kernel must have been launched from the vocabulary descent and the
-   loop matching, every pose must be finite, and the online and final ATE
-   must both be at most 0.25 m;
-7. asynchronous loop closure: a circuit of radius 2 m (one lap in about
-   230 frames) under the flagship
-   configuration of tools/slam_bench.py without its deferred frontend
-   (place recognition on the worker thread, background pose graph,
+   radius 0.8 m (one lap in about 125 frames; 150 frames rendered once for
+   phases 6 to 8, which run 128, 128 and 150 of them) with the synchronous, non-pipelined path (BoW place
+   recognition on the shipped vocabulary, loop matching, non-central
+   RANSAC, in-line pose-graph solve), then `finish()` and the final BA: at
+   least one closure must be accepted, the fused kernel must have been
+   launched from the vocabulary descent and the loop matching, every pose
+   must be finite, and the online and final ATE must both be at most
+   0.25 m;
+7. asynchronous loop closure on the same frames: the flagship configuration
+   of tools/slam_bench.py without its deferred frontend (place recognition
+   on the worker thread, the background optimisation of the history,
    pipelined solve, the realtime budget controller at 35 ms with at least 6
-   iterations), then `finish()` and the final BA: the same checks, and the
-   background pose graph must have been synchronised, the worker must have
+   iterations) with the background complete-factor-graph BA up to 64
+   keyframes, then `finish()` and the final BA: the same checks, and a
+   background full BA must have been synchronised, the worker must have
    stopped, and the words the worker computed on its stream for a keyframe
    must equal the CPU's;
-8. the matrix-free PCG pose-graph solver on drifted circles with loop
+8. the flagship on the same frames: tools/slam_bench.py's configuration as
+   written (the deferred fused frontend at depth 1, asynchronous loop
+   closure, the budget controller), then `finish()` and the final BA: the
+   checks of phase 7 (a background pose graph synchronised), every
+   `frontend_dispatch` free of host syncs under
+   `torch.cuda.set_sync_debug_mode`, the fused kernel's results at the
+   association's call sites equal to its plain version on the same inputs,
+   and the first frames equal to those of the same run on the CPU; it prints
+   the wait on the critical block, the descriptor blocks still in flight
+   when folded in, the iteration budget and the frame times;
+9. the matrix-free PCG pose-graph solver on drifted circles with loop
    edges at 300 and 1000 nodes: the card's poses within 1e-6 of the CPU's,
    and its time per solve.
 
@@ -71,6 +82,8 @@ import subprocess
 import sys
 import threading
 import time
+import types
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
@@ -84,10 +97,11 @@ MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # NVIDIA's table of arithmetic instruction throughput, compute capability 9.0
 POPC_PER_CLOCK_PER_SM = 16
 GRAPH_LAUNCHES = 100
-N_FRAMES = 40
-LC_FRAMES = 260  # the asynchronous phase: a lap of the 2 m circuit
-LC_RADIUS_M = 2.0
-SYNC_FRAMES = 128  # the synchronous phase: a lap of the 0.8 m circuit (1 rad/s)
+N_FRAMES = 20  # the VIO phase: 1 s of the sequence
+# the loop-closure phases: a lap of the 0.8 m circuit (1 rad/s) is about 125
+# frames; the flagship records keyframes more sparsely and a call later, and
+# gets the frames of the next keyframes after the lap as well
+LC_FRAMES = {"synchronous": 128, "asynchronous": 128, "flagship": 150}
 # the body starts at rest, as the estimator's stationary initialisation assumes
 SMALL_CIRCUIT = dict(radius=0.8, speed=0.8, speed_mod=-1.0 / (2 * np.pi * 0.07))
 ATE_LIMIT_M = 0.25
@@ -96,11 +110,19 @@ CPU_GPU_TOL_M = 1e-3
 # the estimator of tools/slam_bench.py; the flagship adds the realtime budget
 BASE_EST = dict(cap_landmarks=1024, cap_obs=8192, max_iterations=10, early_exit_rel=5e-4)
 FLAGSHIP_EST = dict(realtime_time_limit=0.035, min_iterations=6)
-# tools/slam_bench.py's pipeline without the deferred frontend (the JAX
-# defaults leave async_place_recognition and pipelined_solve on)
-FLAGSHIP_PIPE = dict(do_loop_closures=True, async_loop_closure=True, pose_refine=False)
-SYNC_PIPE = dict(do_loop_closures=True, async_place_recognition=False,
-                 async_loop_closure=False, pose_refine=False, pipelined_solve=False)
+# tools/slam_bench.py's pipeline (the JAX defaults leave
+# async_place_recognition and pipelined_solve on) ...
+FLAGSHIP_PIPE = dict(do_loop_closures=True, async_loop_closure=True, pose_refine=False,
+                     deferred_frontend=True, pipeline_depth=1)
+# ... and the loop-closure phases before it
+LC_PIPES = {
+    "synchronous": dict(do_loop_closures=True, async_place_recognition=False,
+                        async_loop_closure=False, pose_refine=False, pipelined_solve=False),
+    "asynchronous": FLAGSHIP_PIPE | dict(deferred_frontend=False, full_ba_threshold=64),
+    "flagship": FLAGSHIP_PIPE,
+}
+LC_ESTS = {"synchronous": {}, "asynchronous": FLAGSHIP_EST, "flagship": FLAGSHIP_EST}
+COMPARE_EVERY = 16  # flagship frames between two holds of the kernel against its plain version
 PCG_NODES = (300, 1000)
 PCG_ITERATIONS = 15  # PipelineConfig.full_graph_iterations
 PCG_TOL = 1e-6
@@ -504,16 +526,19 @@ def render(n_frames, **traj_kwargs):
     return seq
 
 
-def run_pipeline(seq, device, n_frames, record_times=False, est_kw=(), pipe_kw=()):
+def run_pipeline(seq, device, n_frames, record_times=False, est_kw=(), pipe_kw=(), wrap=None):
     """Feed `n_frames` frames of `seq` to a fresh VioPipeline on `device`:
     the estimator of tools/slam_bench.py updated with `est_kw`, the JAX
     package's default PipelineConfig at 704 keypoints updated with
-    `pipe_kw`; then `finish()`.  Returns (pipeline, frame infos, wall time a
-    frame, iterations of each pipelined window solve, wall time of finish)."""
+    `pipe_kw`; then `finish()`.  `wrap(vio)` may instrument the pipeline
+    before the first frame.  Returns (pipeline, frame infos, wall time a
+    frame, iterations of each pipelined window solve when it was built, wall
+    time of finish, the wait on the critical block a frame)."""
     import torch
     from okvis2x_tpu_torch.cameras import pinhole
     from okvis2x_tpu_torch.graph.estimator import EstimatorConfig
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig, VioPipeline
+    from okvis2x_tpu_torch.utils import timing
 
     c = seq.camera
     cam = pinhole.make_pinhole(c["fx"], c["fy"], c["cx"], c["cy"], c["width"], c["height"],
@@ -524,7 +549,9 @@ def run_pipeline(seq, device, n_frames, record_times=False, est_kw=(), pipe_kw=(
     # on the card through the default device, as a user calls it
     on_cpu = dict(device=device) if device.type == "cpu" else {}
     vio = VioPipeline([cam, cam], seq.T_SC, est_cfg, pipe_cfg, **on_cpu)
-    infos, wall, iters = [], [], []
+    if wrap is not None:
+        wrap(vio)
+    infos, wall, iters, waits = [], [], [], []
     n = 0
     for kind, data in seq.events():
         if kind == "imu":
@@ -533,16 +560,20 @@ def run_pipeline(seq, device, n_frames, record_times=False, est_kw=(), pipe_kw=(
         if n >= n_frames:
             break
         t0 = time.perf_counter()
+        w0 = timing.total_s("2.0 PrefetchWait")
         infos.append(vio.process_frame(data[0], data[1]))
         if record_times and device.type == "cuda":
             torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-        if vio._pending is not None:
-            iters.append(vio._pending["h"]["iters"])
+        waits.append(timing.total_s("2.0 PrefetchWait") - w0)
+        h = (vio._pending["h"] if vio._pending is not None
+             else vio._inflight[-1]["solve"] if vio._inflight else None)
+        if h is not None:
+            iters.append(h["iters"])
         n += 1
     t0 = time.perf_counter()
     vio.finish()
-    return vio, infos, wall, iters, time.perf_counter() - t0
+    return vio, infos, wall, iters, time.perf_counter() - t0, waits
 
 
 def check_positions(vio, n_frames, what):
@@ -569,8 +600,24 @@ def vio_cpu_positions():
 
     torch.set_num_threads(2)
     t0 = time.perf_counter()
-    vio, _, _, _, _ = run_pipeline(render(N_FRAMES), torch.device("cpu"), CPU_FRAMES)
+    vio = run_pipeline(render(N_FRAMES), torch.device("cpu"), CPU_FRAMES)[0]
     return np.stack([s[1][:3] for s in vio.states_log]), time.perf_counter() - t0
+
+
+def flagship_cpu_positions():
+    """The first CPU_FRAMES positions of the flagship phase's run on the
+    CPU, with the run's seconds.  One frame more is run: with the deferred
+    frontend a frame's solve is built in the next call, and the last one
+    only in finish(), against a window without that next frame."""
+    import torch
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    vio = run_pipeline(render(max(LC_FRAMES.values()), **SMALL_CIRCUIT), torch.device("cpu"),
+                       CPU_FRAMES + 1,
+                       est_kw=LC_ESTS["flagship"], pipe_kw=LC_PIPES["flagship"])[0]
+    return (np.stack([s[1][:3] for s in vio.states_log[:CPU_FRAMES]]),
+            time.perf_counter() - t0)
 
 
 def pcg_cpu_solves():
@@ -590,7 +637,7 @@ def pcg_cpu_solves():
 
 
 def vio_phase(dev, card, cpu_positions):
-    """40 frames of VIO on the GPU under the JAX default configuration,
+    """N_FRAMES frames of VIO on the GPU under the JAX default configuration,
     against the CPU's first frames (`cpu_positions`, a future of
     `vio_cpu_positions`), then ratio-test matching of the last two frames.
     Returns the launches of the (fused, matrix) kernels on these paths."""
@@ -605,7 +652,7 @@ def vio_phase(dev, card, cpu_positions):
     torch.cuda.reset_peak_memory_stats(dev)
     hamming.reset_launch_counts()
     t0 = time.perf_counter()
-    vio, infos, wall, _, _ = run_pipeline(seq, dev, N_FRAMES, record_times=True)
+    vio, infos, wall, _, _, _ = run_pipeline(seq, dev, N_FRAMES, record_times=True)
     t_run = time.perf_counter() - t0
     launches = hamming.hamming_match.launches
     sites = dict(hamming.hamming_match.site_launches)
@@ -671,34 +718,130 @@ def ratio_match_phase(vio, dev):
     return launches
 
 
-def loop_closure_phase(dev, card, asynchronous):
-    """One lap of a circuit with loop closure, then finish() and the final
-    BA: the synchronous, non-pipelined path on the 0.8 m circuit, or the
-    flagship's asynchronous one on the 2 m circuit.  Returns the fused
-    kernel's launches."""
+class FrontendCheck:
+    """Instruments the flagship pipeline's `frontend_dispatch`.
+
+    Host syncs: `torch.cuda.set_sync_debug_mode` is process-wide, while the
+    recognition worker and the background optimisation read their results
+    back on their own streams, as they must.  So a dispatch runs under
+    "error" when neither is running (the worker's item lock is held for the
+    dispatch; the background thread starts only from the frame thread),
+    else under "warn", and a warning issued on the frame thread during a
+    dispatch counts as a sync.  Either way a sync fails the phase.
+
+    The kernel: every COMPARE_EVERY-th dispatch keeps the inputs and results
+    of the association's fused-kernel launches, and after the dispatch holds
+    each against the plain version on the same inputs."""
+
+    SYNC = "synchronizing CUDA operation"
+
+    def __init__(self):
+        self.n_error = self.n_warn = self.n_compared = self._n = 0
+        self.syncs = []
+        self.calls = None
+        self._in_dispatch = False
+        self._frame_thread = threading.current_thread()
+
+    def install(self):
+        self._show, self._filters = warnings.showwarning, warnings.filters[:]
+        warnings.showwarning = self._showwarning
+        warnings.filterwarnings("always", message=f".*{self.SYNC}.*")
+
+    def uninstall(self):
+        warnings.showwarning, warnings.filters[:] = self._show, self._filters
+
+    def _showwarning(self, message, category, filename, lineno, file=None, line=None):
+        if self.SYNC not in str(message):
+            return self._show(message, category, filename, lineno, file, line)
+        if self._in_dispatch and threading.current_thread() is self._frame_thread:
+            self.syncs.append(f"{filename}:{lineno}")
+
+    def wrap(self, vio):
+        import torch
+        from okvis2x_tpu_torch.frontend import matcher
+        from okvis2x_tpu_torch.ops import hamming
+
+        def recorded(*args, **kwargs):
+            out = hamming.hamming_match(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        # ops.hamming as the matcher sees it during a compared dispatch
+        recording = types.SimpleNamespace(**vars(hamming))
+        recording.hamming_match = recorded
+        dispatch = vio.frontend_dispatch
+
+        def checked(*args, **kwargs):
+            quiet = vio._lc_active.acquire(blocking=False)
+            compare = self._n % COMPARE_EVERY == COMPARE_EVERY // 2
+            self._n += 1
+            real = matcher.hamming
+            try:
+                mode = "error" if quiet and not vio.full_graph.is_loop_closing else "warn"
+                self.n_error += mode == "error"
+                self.n_warn += mode == "warn"
+                if compare:
+                    self.calls, matcher.hamming = [], recording
+                self._in_dispatch = True
+                torch.cuda.set_sync_debug_mode(mode)
+                try:
+                    return dispatch(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    self._in_dispatch = False
+                    matcher.hamming = real
+            finally:
+                if quiet:
+                    vio._lc_active.release()
+                if compare:
+                    self._compare()
+
+        vio.frontend_dispatch = checked
+
+    def _compare(self):
+        import torch
+        from okvis2x_tpu_torch.ops import hamming
+
+        for args, kwargs, out in self.calls:
+            ref = hamming.hamming_match_plain(*args, **{k: v for k, v in kwargs.items()
+                                                        if k != "site"})
+            for g, r in zip(out, ref):
+                if (g is None) != (r is None) or (g is not None and not torch.equal(g, r)):
+                    raise RuntimeError("flagship: the fused kernel differs from its plain "
+                                       "version at an association site")
+            self.n_compared += 1
+        self.calls = None
+
+
+def loop_closure_phase(dev, card, mode, seq, cpu_positions=None):
+    """One lap of the 0.8 m circuit (`seq`) with loop closure, then finish()
+    and the final BA, in `mode`: "synchronous" (the synchronous,
+    non-pipelined path), "asynchronous" (the flagship without its deferred
+    frontend, with the background full BA) or "flagship" (tools/slam_bench.py
+    as written; `cpu_positions` is a future of `flagship_cpu_positions`).
+    Returns the fused kernel's launches."""
     import torch
     from okvis2x_tpu_torch.frontend import bow
     from okvis2x_tpu_torch.ops import hamming
     from okvis2x_tpu_torch.utils import timing
 
-    what = "asynchronous loop-closure" if asynchronous else "synchronous loop-closure"
-    n_frames = LC_FRAMES if asynchronous else SYNC_FRAMES
-    traj = dict(radius=LC_RADIUS_M) if asynchronous else SMALL_CIRCUIT
-    t0 = time.perf_counter()
-    seq = render(n_frames, **traj)
-    print(f"rendered {n_frames} frames at 752x480, circuit radius {traj['radius']} m: "
-          f"{time.perf_counter() - t0:.1f} s")
+    what = f"{mode} loop-closure"
+    n_frames = LC_FRAMES[mode]
+    check = FrontendCheck() if mode == "flagship" else None
     timing.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     hamming.reset_launch_counts()
     t0 = time.perf_counter()
-    if asynchronous:
-        kw = dict(est_kw=FLAGSHIP_EST, pipe_kw=FLAGSHIP_PIPE)
-    else:
-        kw = dict(pipe_kw=SYNC_PIPE)
     threads_before = set(threading.enumerate())
-    vio, infos, wall, iters, t_finish = run_pipeline(seq, dev, n_frames, record_times=True,
-                                                     **kw)
+    if check is not None:
+        check.install()
+    try:
+        vio, infos, wall, iters, t_finish, waits = run_pipeline(
+            seq, dev, n_frames, record_times=True, est_kw=LC_ESTS[mode], pipe_kw=LC_PIPES[mode],
+            wrap=None if check is None else check.wrap)
+    finally:
+        if check is not None:
+            check.uninstall()
     t_run = time.perf_counter() - t0
     ts, Ts = check_positions(vio, n_frames, what)
     t0 = time.perf_counter()
@@ -731,23 +874,30 @@ def loop_closure_phase(dev, card, asynchronous):
     ate_on = ate_checked(seq, ts, Ts, f"{what} online")
     ate_fin = ate_checked(seq, ft, fT, f"{what} final")
     ms = np.asarray(wall) * 1e3
+    n_common = min(LC_FRAMES.values())
     print(f"{what}: {n_frames} frames in {t_run:.1f} s (finish() {t_finish:.1f} s), online "
           f"ATE {ate_on:.4f} m, final ATE {ate_fin:.4f} m over {len(ft)} keyframes, ms/frame "
-          f"p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max {ms.max():.1f}, "
+          f"p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max {ms.max():.1f} "
+          f"(first {n_common} frames: p50 {np.percentile(ms[:n_common], 50):.1f} p90 "
+          f"{np.percentile(ms[:n_common], 90):.1f}), "
           f"2.8 LoopClosure mean {timing.mean_ms('2.8 LoopClosure'):.1f} ms, final BA "
           f"{t_ba:.1f} s, peak allocated {peak / 2**20:.1f} MiB, fused match launches "
           f"{launches} ({card})")
-    if asynchronous:
+    if mode != "synchronous":
         fg = vio.full_graph
         hist = {int(k): int(n) for k, n in zip(*np.unique(iters, return_counts=True))}
         left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
-        print(f"{what}: full graph dispatched {fg.n_dispatched}, synchronised "
-              f"{fg.n_synchronised}, stale discarded {fg.n_stale_discarded}; keyframes demoted "
-              f"to index-only {vio._lc_skipped}; window solve iterations {hist} "
-              f"(histogram of _rt_iters at dispatch), budget overruns {vio.est.n_budget_overruns} "
-              f"of {len(iters)} solves; threads left after finish(): {left} ({card})")
+        print(f"{what}: background optimisation dispatched {fg.n_dispatched}, synchronised "
+              f"{fg.n_synchronised} (full BA {fg.n_full_ba}), stale discarded "
+              f"{fg.n_stale_discarded}, solve wall time mean "
+              f"{timing.mean_ms('4.1 FullGraphSolve'):.1f} ms; keyframes demoted to index-only "
+              f"{vio._lc_skipped}; window solve iterations {hist} (histogram of _rt_iters when "
+              f"built), budget overruns {vio.est.n_budget_overruns} of {len(iters)} solves; "
+              f"threads left after finish(): {left} ({card})")
         if fg.n_synchronised < 1:
-            raise RuntimeError(f"{what}: the background pose graph was never synchronised")
+            raise RuntimeError(f"{what}: the background optimisation was never synchronised")
+        if mode == "asynchronous" and fg.n_full_ba < 1:
+            raise RuntimeError(f"{what}: no background full BA was synchronised")
         if left or vio._lc_thread is not None or fg.is_loop_closing:
             raise RuntimeError(f"{what}: threads still running after finish(): {left}")
         # the words the worker computed on its stream, against the CPU
@@ -767,6 +917,25 @@ def loop_closure_phase(dev, card, asynchronous):
         if not torch.equal(w_gpu, w_cpu):
             raise RuntimeError("vocabulary words differ between the card and the CPU")
         print(f"{what}: vocabulary words of the first keyframe: card == CPU, exact")
+    if check is not None:
+        wait_ms = np.asarray(waits) * 1e3
+        print(f"{what}: frontend_dispatch under set_sync_debug_mode: {check.n_error} dispatches "
+              f"under 'error', {check.n_warn} under 'warn' (a worker running), host syncs on the "
+              f"frame thread {len(check.syncs)}; fused kernel == plain at {check.n_compared} "
+              f"association launches of {n_frames // COMPARE_EVERY} frames, exact; "
+              f"2.0 PrefetchWait ms p50 {np.percentile(wait_ms, 50):.3f} p90 "
+              f"{np.percentile(wait_ms, 90):.3f} max {wait_ms.max():.3f}; descriptor blocks still "
+              f"in flight when folded in: {vio.n_desc_late} ({card})")
+        if check.syncs or check.n_error + check.n_warn != n_frames:
+            raise RuntimeError(f"{what}: host syncs in frontend_dispatch at {check.syncs}")
+        if check.n_compared != 4 * (n_frames // COMPARE_EVERY):
+            raise RuntimeError(f"{what}: held {check.n_compared} kernel launches against plain")
+        p_cpu, t_cpu = cpu_positions.result()
+        gap = float(np.abs(p_cpu - Ts[:CPU_FRAMES, :3]).max())
+        print(f"{what}: cpu vs gpu over {CPU_FRAMES} frames: max position gap {gap:.3e} m (CPU run "
+              f"{t_cpu:.1f} s, in a process of its own)")
+        if not gap <= CPU_GPU_TOL_M:
+            raise RuntimeError(f"{what}: GPU and CPU runs disagree by {gap} m")
     print(timing.report())
     return launches
 
@@ -860,26 +1029,30 @@ def main() -> int:
           f"{torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB allocated (the library "
           "yardstick's cuBLAS workspace), which the phases' peaks below include")
 
-    # ---- phases 4 to 8: the main paths, then the PCG pose graph; the CPU
+    # ---- phases 4 to 9: the main paths, then the PCG pose graph; the CPU
     # halves of their card-vs-CPU checks run meanwhile in a process of
     # their own (one core of the host; the card's phases are host-bound on
     # one other)
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
         cpu_positions = pool.submit(vio_cpu_positions)
+        cpu_flagship = pool.submit(flagship_cpu_positions)
         cpu_solves = pool.submit(pcg_cpu_solves)
         t0 = time.perf_counter()
         on_match, on_matrix = vio_phase(dev, card, cpu_positions)
         print(f"VIO phase: {time.perf_counter() - t0:.1f} s")
-        for asynchronous in (False, True):
+        t0 = time.perf_counter()
+        seq = render(max(LC_FRAMES.values()), **SMALL_CIRCUIT)
+        print(f"rendered {max(LC_FRAMES.values())} frames at 752x480, circuit radius "
+              f"{SMALL_CIRCUIT['radius']} m: {time.perf_counter() - t0:.1f} s")
+        for mode in LC_PIPES:
             t0 = time.perf_counter()
-            on_match += loop_closure_phase(dev, card, asynchronous)
-            print(f"{'asynchronous' if asynchronous else 'synchronous'} loop-closure phase: "
-                  f"{time.perf_counter() - t0:.1f} s")
+            on_match += loop_closure_phase(dev, card, mode, seq, cpu_flagship)
+            print(f"{mode} loop-closure phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         pcg_phase(dev, card, cpu_solves)
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
-    # times at 704x1024, the map matching's shape; launches over phases 4-7
+    # times at 704x1024, the map matching's shape; launches over phases 4-8
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

@@ -29,13 +29,15 @@ Layer map (as in okvis2x_tpu):
              (numpy)
 
 Ported so far: the stereo-inertial VIO path (``pipeline.vio.VioPipeline``)
-with pose refinement and the pipelined solve, loop closure (BoW, RANSAC,
-the pose graph) synchronous or asynchronous (the place-recognition worker,
-the background full graph of ``graph/fullgraph.py``), the single-device
-matrix-free pose-graph solver of ``parallel/dist_posegraph.py`` and the
-final BA.  The deferred fused frontend, GNSS, depth, LiDAR, submaps, the
-learned models, ROS2 and the multi-device ``parallel/`` solvers are not
-ported yet.
+with pose refinement and the pipelined solve or the deferred fused frontend
+(one launch chain a frame without a host sync, consumed a frame later),
+loop closure (BoW, RANSAC, the pose graph) synchronous or asynchronous (the
+place-recognition worker, the background optimisation of
+``graph/fullgraph.py``: the complete factor graph or the pose graph), the
+single-device matrix-free pose-graph solver of ``parallel/dist_posegraph.py``
+and the final BA.  Online vocabulary training, relocalisation, semantic
+weighting, GNSS, depth, LiDAR, submaps, the learned models, ROS2 and the
+multi-device ``parallel/`` solvers are not ported yet.
 
 The entry points run on the first CUDA device unless the caller names
 another device (``device="cpu"`` for the CPU).

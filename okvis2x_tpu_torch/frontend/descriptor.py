@@ -47,6 +47,20 @@ def make_pattern():
 
 
 PATTERN_PTS, PAIR_A, PAIR_B = make_pattern()
+_ON_DEVICE = {}
+
+
+def pattern(device):
+    """(points, pair_a, pair_b) as tensors on `device`, copied there once: a
+    copy from the host in every call would make the host wait for the
+    device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _ON_DEVICE:
+        _ON_DEVICE[device] = tuple(torch.as_tensor(x, device=device)
+                                   for x in (PATTERN_PTS, PAIR_A, PAIR_B))
+    return _ON_DEVICE[device]
 
 
 def _bilinear_bf16(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -81,15 +95,13 @@ def extract(
     img = gauss5(img.to(torch.float32))
     ang = angle.to(torch.float32)
     ca, sa = torch.cos(ang), torch.sin(ang)
-    pts = torch.as_tensor(PATTERN_PTS, device=dev)
+    pts, pa, pb = pattern(dev)
     scale = (1.0 + level.to(torch.float32))[:, None]
     px, py = pts[None, :, 0], pts[None, :, 1]
     off_x = (ca[:, None] * px + (-sa)[:, None] * py) * scale
     off_y = (sa[:, None] * px + ca[:, None] * py) * scale
     sample_xy = uv.to(torch.float32)[:, None, :] + torch.stack([off_x, off_y], dim=-1)
     vals = _bilinear_bf16(img, sample_xy)  # (N, 60)
-    pa = torch.as_tensor(PAIR_A, device=dev)
-    pb = torch.as_tensor(PAIR_B, device=dev)
     bits = (vals[:, pa] > vals[:, pb]) & valid[:, None]
     shifts = torch.arange(32, device=dev, dtype=torch.int64)
     words = (bits.reshape(-1, DESC_WORDS, 32).to(torch.int64) << shifts).sum(-1)

@@ -176,6 +176,13 @@ class SlidingWindowEstimator:
         # (Preintegrated f64 numpy, sqrt_info (15, 15) f64)
         self.imu_links: Dict[tuple, tuple] = {}
 
+        # deferred marginalisation edges (the deferred frontend): the
+        # two-pose edges of a marginalised keyframe are launched and kept as
+        # jobs, which the pipeline reads back one cycle later and folds in
+        # with `apply_pending_edges`
+        self.defer_edge_jobs = False
+        self.pending_edge_jobs: List[dict] = []
+
         # relative-pose (marginalisation) edges between frame ids, and the
         # long-term pose graph of frames/edges that left the window
         self.rel_edges: List[dict] = []
@@ -367,6 +374,19 @@ class SlidingWindowEstimator:
         eye15 = torch.eye(15, **dt)
         W = imu_factor.sqrt_information(torch.where(v, P.P, eye15))
         return P, torch.where(v, W, eye15)
+
+    def repredict_after(self, fid: int):
+        """Re-run the IMU prediction of every chain state newer than `fid`
+        (the newest frame of a just-collected solve), so that the next
+        problem linearises around predictions rolled forward from the
+        corrected states; no solved pose is overwritten."""
+        chain = self._chain_frames()
+        idx = None
+        for i, f in enumerate(chain):
+            if f.fid <= fid:
+                idx = i
+        if idx is not None:
+            self.repredict_latest(tail=len(chain) - 1 - idx)
 
     def repredict_latest(self, tail: int = 1):
         """Re-run the IMU prediction of the newest `tail` chain states from
@@ -878,26 +898,35 @@ class SlidingWindowEstimator:
         M[pairs[:, 0], lm_inv] = 1.0
         return M @ M.T
 
-    def _compute_two_pose_edges(self, victim: FrameState, targets) -> List[dict]:
-        """TwoPoseGraphError-style edges victim->target for up to 3 targets;
-        co-observations are capped at 128 landmarks and subsampled to 512
-        observations per edge."""
-        ncap, lcap = 512, 128
+    def _dispatch_two_pose_edges(self, victim: FrameState, targets) -> Optional[dict]:
+        """Launch the TwoPoseGraphError-style edges victim -> target for up
+        to 3 targets on the estimator's device without reading them back.
+        Co-observations are capped at 128 landmarks and subsampled to 512
+        observations an edge.  Returns a job, dict(victim_fid, target_fids,
+        out), whose `out` is a (3, 44) tensor of rows [T_ab (7) | sqrt_info
+        (36) | strength] (zeros where `target_fids` is None), or None."""
+        B, ncap, lcap = 3, 512, 128
+        targets = list(targets)[:B]
+        if not targets:
+            return None
         dev, dtype = self.device, self.cfg.dtype
+        F = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
+        I = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)  # noqa: E731
         va = self.obs_fid == victim.fid
-        edges = []
-        for target in list(targets)[:3]:
+        zero = torch.zeros(44, dtype=dtype, device=dev)
+        rows, target_fids = [], []
+        for target in targets:
             vb = self.obs_fid == target.fid
             shared = set(self.obs_lid[va]) & set(self.obs_lid[vb])
             shared = [l for l in shared if l in self.lm_index][:lcap]
             if not shared:
+                rows.append(zero)
+                target_fids.append(None)
                 continue
             lrow = {l: i for i, l in enumerate(shared)}
             sel = np.nonzero((va | vb) & np.isin(self.obs_lid, list(shared)))[0]
             if len(sel) > ncap:
                 sel = sel[:: len(sel) // ncap + 1][:ncap]
-            F = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
-            I = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)  # noqa: E731
             T_ab, W, strength = two_pose_edge(
                 self.cams, F(victim.T_WS), F(target.T_WS), F(self.T_SC),
                 F(self.hp_W[[self.lm_index[l] for l in shared]]),
@@ -907,16 +936,48 @@ class SlidingWindowEstimator:
                 F(1.0 / self.obs_sigma[sel]),
                 torch.ones(len(sel), dtype=torch.bool, device=dev),
             )
-            strength = float(strength)
+            rows.append(torch.cat([T_ab, W.reshape(36), strength.reshape(1)]))
+            target_fids.append(target.fid)
+        if all(t is None for t in target_fids):
+            return None
+        rows += [zero] * (B - len(rows))
+        return dict(victim_fid=victim.fid, target_fids=target_fids, out=torch.stack(rows))
+
+    def _collect_two_pose_edges(self, job: dict, out_np: Optional[np.ndarray] = None
+                                ) -> List[dict]:
+        """The edges of a dispatched job (read back here unless `out_np`,
+        its rows on the host, is given); edges of strength below 1e-3 are
+        dropped."""
+        out = job["out"].cpu().numpy() if out_np is None else np.asarray(out_np)
+        edges = []
+        for r, target_fid in enumerate(job["target_fids"]):
+            if target_fid is None:
+                continue
+            strength = float(out[r, 43])
             if not np.isfinite(strength) or strength < 1e-3:
                 continue
             edges.append(dict(
-                i=victim.fid, j=target.fid,
-                T_ij=T_ab.cpu().numpy().astype(np.float64),
-                sqrt_info=W.cpu().numpy().astype(np.float64),
+                i=job["victim_fid"], j=target_fid,
+                T_ij=out[r, :7].astype(np.float64),
+                sqrt_info=out[r, 7:43].reshape(6, 6).astype(np.float64),
                 marg=True,
             ))
         return edges
+
+    def _compute_two_pose_edges(self, victim: FrameState, targets) -> List[dict]:
+        """The two-pose edges victim -> target for up to 3 targets, at once."""
+        job = self._dispatch_two_pose_edges(victim, targets)
+        return [] if job is None else self._collect_two_pose_edges(job)
+
+    def apply_pending_edges(self, job: dict, out_np: np.ndarray) -> int:
+        """Fold a deferred edge job, its rows `out_np` read back, into the
+        graph: edges whose endpoints left the window meanwhile go to the
+        archive.  Returns how many edges were added."""
+        edges = self._collect_two_pose_edges(job, out_np)
+        live = {f.fid for f in self.frames}
+        for e in edges:
+            (self.rel_edges if e["i"] in live and e["j"] in live else self.archive_edges).append(e)
+        return len(edges)
 
     def _marginalise_keyframe(self, victim: FrameState):
         """Summarise the keyframe into relative-pose edges along the maximum
@@ -942,12 +1003,20 @@ class SlidingWindowEstimator:
             bi = int(np.argmax(C[0, 1:])) + 1
             if C[0, bi] >= 3:
                 edge_targets = [nodes[bi]]
-        edges = self._compute_two_pose_edges(victim, edge_targets)
-        if not edges and len(nodes) > 1:
-            bi = int(np.argmax(C[0, 1:])) + 1
-            if C[0, bi] >= 3:
-                edges = self._compute_two_pose_edges(victim, [nodes[bi]])
-        self.rel_edges.extend(edges)
+        if self.defer_edge_jobs:
+            # launched only: the pipeline folds the edges in one cycle later,
+            # so the solve in between runs without them (and without the
+            # retry below, which needs their strengths)
+            job = self._dispatch_two_pose_edges(victim, edge_targets)
+            if job is not None:
+                self.pending_edge_jobs.append(job)
+        else:
+            edges = self._compute_two_pose_edges(victim, edge_targets)
+            if not edges and len(nodes) > 1:
+                bi = int(np.argmax(C[0, 1:])) + 1
+                if C[0, bi] >= 3:
+                    edges = self._compute_two_pose_edges(victim, [nodes[bi]])
+            self.rel_edges.extend(edges)
         self._merge_chain_link(victim.fid)
         victim.pose_graph_frame = True
         # the edges summarise the observations in the window; the final BA
@@ -1559,6 +1628,24 @@ class SlidingWindowEstimator:
             else:
                 self.arch_lm[lid] = hp_out[row]
         return True
+
+    def snapshot_full_ba(self, iterations: int = 15) -> Optional[dict]:
+        """The complete-history BA (`_full_problem` with re-propagated IMU)
+        for the background full-graph optimiser: dict(problem, aux,
+        iterations, epoch), or None when there is too little to solve.  The
+        problem is built here, on the caller's thread and stream; the worker
+        only solves it (`_full_ba_run_fn`).
+
+        Capacities are the content's buckets.  The JAX package pins them
+        (64 nodes, 4096 landmarks, 16384 observations, 128 edges, 64 IMU
+        links) only to reuse one XLA compile; up to its 64-node threshold
+        both take the inverse branch of the reduced solve, and the results
+        agree (tests/test_torch_full_ba.py)."""
+        out = self._full_problem(use_imu=True)
+        if out is None:
+            return None
+        p, aux = out
+        return dict(problem=p, aux=aux, iterations=iterations, epoch=self.correction_epoch)
 
     def final_ba(self, iterations: int = 15, redo_imu: bool = True,
                  max_nodes: int = 128) -> float:

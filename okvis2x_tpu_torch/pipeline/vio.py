@@ -1,14 +1,13 @@
 """Per-frame VIO pipeline: detection -> association -> estimation ->
-marginalisation (torch counterpart of the synchronous VIO subset of
-``okvis2x_tpu/pipeline/vio.py``).
+marginalisation (torch counterpart of ``okvis2x_tpu/pipeline/vio.py``).
 
 Stages per frame:
   1. add_state: IMU propagation to the frame time (estimator, host);
   2. detect & describe every camera (device);
   3. association (device): match-to-map per camera with a projection gate,
      rig-stereo initialisation with an epipolar gate, motion stereo against
-     the last keyframe; every Hamming distance comes from the packed
-     descriptor kernel (``ops.hamming``);
+     the last keyframe; every Hamming distance comes from the fused match
+     kernel (``ops.hamming``);
   4. pose refinement (`pose_refine`): a 3-iteration pose-only solve with
      the landmarks held, then the chi2 outlier cut of the frame's
      observations (`reject_outliers`);
@@ -19,29 +18,47 @@ Stages per frame:
      entry, the IMU prediction until then, is corrected when it lands;
   7. loop closure on keyframes: vocabulary words and a tf-idf query
      (``frontend/bow.py``), mutual matching against up to three candidates
-     on the Hamming kernel, batched non-central RANSAC
+     on the fused match kernel, batched non-central RANSAC
      (``frontend/ransac.py``), then on the frame thread a drift-budget
      gate, the loop edge, the candidate held in the window and landmark
      merges.  With `async_place_recognition` the query and verification
      run on a worker thread (its own CUDA stream on a card) and their
      proposals are applied on a later frame; with `async_loop_closure` the
-     pose graph is solved on a background thread
-     (``graph/fullgraph.py``) and synchronised on a later frame, else in
-     line, followed by a window re-solve;
+     whole history is optimised on a background thread
+     (``graph/fullgraph.py``: the complete factor graph up to
+     `full_ba_threshold` keyframes, else the pose graph) and synchronised on
+     a later frame, else the pose graph is solved in line, followed by a
+     window re-solve;
   8. marginalisation.
 
-After the last frame, `finish()` (collect the pending solve, drain the
-worker, join the background optimisation) and `est.final_ba()` give the
-refined trajectory (`est.full_trajectory()`).
+With `deferred_frontend` (the flagship configuration of
+tools/slam_bench.py) stages 2 and 3 of a frame are one chain of launches on
+the frame's CUDA stream with no host sync (`frontend_dispatch`), consumed
+`pipeline_depth` frames later (one during the first
+`pipeline_ramp_frames`).  Each cycle copies its results to pinned host
+memory behind CUDA events: the critical block (keypoints and association)
+first, then the rows of the deferred marginalisation edges, then the
+descriptors, which only the next frames' tables and the keyframe records
+need (`_drain_desc`).  A call waits on the critical event of the oldest
+cycle ("2.0 PrefetchWait", the realtime budget's signal), applies the
+previous solve and the edges, then the association and keyframe decision,
+launches this frame's frontend, then builds the window solve of the frame
+just consumed.  So association runs against a map one solve stale, the
+keyframe decision is reported one call later, and the edges of a
+marginalised keyframe join the graph one cycle late, as in the JAX package.
 
-Online vocabulary training, relocalisation against loaded maps, the
-deferred fused frontend, the background complete-factor-graph BA, semantic
-weighting and depth input are not part of the port yet; enabling them
-raises ``NotImplementedError``.
+After the last frame, `finish()` (drain the cycles in flight, collect the
+pending solve, drain the worker, join the background optimisation) and
+`est.final_ba()` give the refined trajectory (`est.full_trajectory()`).
+
+Online vocabulary training, relocalisation against loaded maps, semantic
+weighting (also inside the fused frontend) and depth input are not part of
+the port yet; enabling them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
@@ -105,26 +122,27 @@ class PipelineConfig:
     # and synchronised on a later frame (else in line)
     async_loop_closure: bool = False
     full_graph_iterations: int = 15
-    # the background complete-factor-graph BA below this many keyframes
-    # (not ported: only 0)
+    # the background optimisation solves the complete factor graph up to
+    # this many keyframes, the pose graph above (0: always the pose graph)
     full_ba_threshold: int = 0
     # 3-iteration pose-only solve and outlier cut before the window solve
     pose_refine: bool = True
     # the window solve collected one frame later
     pipelined_solve: bool = True
-    # features of the JAX package that the port does not have yet: each
-    # must stay at its "off" value
+    # the deferred fused frontend: detection, description and association
+    # launched as one chain without a host sync and consumed
+    # `pipeline_depth` frames later (depth 1 during the first
+    # `pipeline_ramp_frames`); pose refinement does not run in this mode
     deferred_frontend: bool = False
+    pipeline_depth: int = 1
+    pipeline_ramp_frames: int = 25
+    # semantic keypoint weighting: not ported, must stay "off"
     segmentation: str = "off"
 
     def check_ported(self):
-        if self.deferred_frontend:
-            raise NotImplementedError("PipelineConfig.deferred_frontend is not ported yet")
         if self.segmentation != "off":
-            raise NotImplementedError("semantic keypoint weighting is not ported yet")
-        if self.full_ba_threshold > 0:
-            raise NotImplementedError("the background complete-factor-graph BA "
-                                      "(full_ba_threshold > 0) is not ported yet")
+            raise NotImplementedError("semantic keypoint weighting is not ported yet "
+                                      "(neither in the synchronous nor in the fused frontend)")
         if self.do_loop_closures and self.vocab_path == "":
             raise NotImplementedError("online vocabulary training is not ported yet")
 
@@ -135,13 +153,30 @@ ASSOC_CAP = 256
 
 
 class FrameData:
-    """Per-frame detection results, host side."""
+    """Per-frame detection results, host side.  Under the deferred frontend
+    `packed` is None until the frame's descriptor block lands
+    (`_drain_desc`); the landmark descriptors assigned meanwhile wait in
+    `desc_todo` as (landmark id, keypoint)."""
 
     def __init__(self, uv, valid, packed):
         self.uv = uv  # (N, 2) float64
         self.valid = valid  # (N,) bool
-        self.packed = packed  # (N, 12) int32
+        self.packed = packed  # (N, 12) int32, or None while in flight
         self.lid = np.full(uv.shape[0], -1, np.int64)  # landmark assignment
+        self.desc_todo: list = []
+
+
+# the association's outputs, in the order of the critical block
+ASSOC_KEYS = ("map_rows", "st_i1", "st_i0", "st_hp", "mo_ic", "mo_ik", "mo_hp")
+
+
+def _first_true(ok: torch.Tensor, S: int) -> torch.Tensor:
+    """(S,) indices of the first S true entries of `ok`, in order, then -1:
+    a compaction of fixed size that needs no host sync (unlike nonzero)."""
+    pos = torch.cumsum(ok.to(torch.int64), 0) - 1
+    slot = torch.where(ok & (pos < S), pos, torch.full_like(pos, S))
+    out = torch.full((S + 1,), -1, dtype=torch.int64, device=ok.device)
+    return out.scatter_(0, slot, torch.arange(ok.shape[0], device=ok.device))[:S]
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -220,6 +255,37 @@ class VioPipeline:
                                              dtype=dtype,
                                              full_ba_threshold=cfg.full_ba_threshold)
 
+        # deferred frontend: the cycles in flight (oldest first), the solve
+        # handle waiting to ride the next cycle, the frame whose solve is
+        # still to be built, what the last consume reported, the descriptor
+        # blocks not folded in yet (fid -> (cycle, frame data)) and the
+        # keyframes whose loop-closure record waits on them
+        self._inflight = collections.deque()
+        self._next_solve = None
+        self._solve_todo = None
+        self._n_frames_seen = 0
+        self._last_counts = (0, 0, 0)
+        self._last_quality = None
+        self._kf_event = (None, False)
+        self._desc_pending: Dict[int, tuple] = {}
+        self._kf_lc_todo: Dict[int, float] = {}
+        self.n_desc_late = 0  # descriptor blocks still in flight at a _drain_desc()
+        if cfg.deferred_frontend:
+            self.est.defer_edge_jobs = True
+
+        # constants of the association on the device, made once: a copy from
+        # the host inside the frame's launch chain would be a host sync
+        F = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)  # noqa: E731
+        self._T_SC_d = F(self.T_SC)
+        if self.num_cams >= 2:
+            T_C1C0 = se3np.se3_multiply(se3np.se3_inverse(self.T_SC[1]), self.T_SC[0])
+            T_C0C1 = se3np.se3_inverse(T_C1C0)
+            self._rig = dict(
+                E=_f32(F(se3np.cross_matrix(T_C1C0[:3]) @ se3np.quat_to_matrix(T_C1C0[3:7]))),
+                fpx=float(self.np_cameras[1].fxfycxcy[1]),
+                p_B=_f32(F(T_C0C1[:3])), R_C0C1=_f32(F(se3np.quat_to_matrix(T_C0C1[3:7]))))
+        descriptor.pattern(self.device)
+
     # ---------------------------------------------------------------- stages
     @staticmethod
     def _pad_width(img: np.ndarray) -> np.ndarray:
@@ -245,35 +311,61 @@ class VioPipeline:
                 angles.append(float(np.arctan2(e_C[1], e_C[0])))
         return angles
 
-    def detect_and_describe(self, images: List[np.ndarray], T_WS_pred: np.ndarray):
-        """Stage 2: detection + description of every camera on the device;
-        returns one FrameData per camera."""
-        cfg = self.cfg
+    def _pack_images(self, images: List[np.ndarray]) -> np.ndarray:
+        """(C, H, W') uint8: every image padded to a width of 128k."""
         imgs = np.stack([self._pad_width(im) for im in images])
         if imgs.dtype != np.uint8:
             imgs = np.clip(imgs * 255.0, 0, 255).astype(np.uint8)
-        angles = self._gravity_angles(len(images), T_WS_pred)
-        imgs_d = torch.from_numpy(imgs).to(self.device).to(torch.float32) * (1.0 / 255.0)
-        out = []
-        for c in range(len(images)):
+        return imgs
+
+    def _upload(self, x: np.ndarray, dtype=None) -> torch.Tensor:
+        """A host array on the pipeline's device; on a card through pinned
+        memory and an asynchronous copy on the current stream, so that the
+        host does not wait for the device."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if dtype is not None:
+            t = t.to(dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _detect_describe_device(self, imgs_d: torch.Tensor, angles):
+        """Stage 2 on the device for every camera of the (C, H, W') uint8
+        images: (uv (C, N, 2) float32, valid (C, N), packed (C, N, 12)
+        int32)."""
+        cfg = self.cfg
+        imgs = imgs_d.to(torch.float32) * (1.0 / 255.0)
+        uv, valid, packed = [], [], []
+        for c in range(imgs.shape[0]):
             kp = detector.detect(
-                imgs_d[c], max_keypoints=cfg.max_keypoints, octaves=cfg.octaves,
+                imgs[c], max_keypoints=cfg.max_keypoints, octaves=cfg.octaves,
                 cell=cfg.detection_cell, per_cell=cfg.detection_per_cell,
                 threshold=cfg.harris_threshold,
             )
             ang = torch.full((cfg.max_keypoints,), angles[c], dtype=torch.float32,
                              device=self.device)
-            packed = descriptor.extract(imgs_d[c], kp.uv, ang, kp.level, kp.valid)
-            out.append(FrameData(
-                uv=kp.uv.cpu().numpy().astype(np.float64),
-                valid=kp.valid.cpu().numpy(),
-                packed=packed.cpu().numpy(),
-            ))
-        return out
+            packed.append(descriptor.extract(imgs[c], kp.uv, ang, kp.level, kp.valid))
+            uv.append(kp.uv)
+            valid.append(kp.valid)
+        return torch.stack(uv), torch.stack(valid), torch.stack(packed)
+
+    def detect_and_describe(self, images: List[np.ndarray], T_WS_pred: np.ndarray):
+        """Stage 2 of the synchronous path: detection and description of
+        every camera on the device, read back; one FrameData per camera."""
+        imgs_d = torch.from_numpy(self._pack_images(images)).to(self.device)
+        uv, valid, packed = self._detect_describe_device(
+            imgs_d, self._gravity_angles(len(images), T_WS_pred))
+        uv = uv.cpu().numpy().astype(np.float64)
+        valid, packed = valid.cpu().numpy(), packed.cpu().numpy()
+        return [FrameData(uv=uv[c], valid=valid[c], packed=packed[c])
+                for c in range(len(images))]
 
     def _assoc_stage(self, T_WS: np.ndarray) -> dict:
         """Host staging of the association inputs: landmark table and the
-        motion-stereo keyframe around the pose estimate `T_WS`."""
+        motion-stereo keyframe around the pose estimate `T_WS`.  Landmarks
+        without a descriptor yet (deferred frontend, loop-closure restores)
+        get zero words, which match nothing; a keyframe whose descriptor
+        block is still in flight gives no motion stereo."""
         est = self.est
         nl = len(est.lm_ids)
         Lcap = est.cfg.cap_landmarks
@@ -293,6 +385,8 @@ class VioPipeline:
                 fk = est.get_state(self.last_kf_fid)
                 kfd = self.frames[self.last_kf_fid][0]
                 kf_fid = self.last_kf_fid
+                if kfd.packed is None:
+                    kfd, kf_fid = None, None
             except KeyError:
                 kfd = None
         if kfd is not None:
@@ -310,24 +404,36 @@ class VioPipeline:
         return dict(nl=nl, lids=lids, hp=hp, packs=packs, lm_valid=lm_valid,
                     kf_fid=kf_fid, T_WCk=T_WCk, T_CkC=T_CkC, motion_on=motion_on, kf=kf)
 
-    def _assoc_core(self, T_WS, st: dict, frame_data: List[FrameData]) -> dict:
-        """Stages 3 and 6 on the device: map matching for every camera with
-        one keypoint kept per landmark, rig-stereo and motion-stereo
-        initialisations.  Returns host arrays."""
+    def _stage_device(self, T_WS: np.ndarray, st: dict) -> dict:
+        """The staged association inputs on the device (`_upload`)."""
+        f, kf = self.est.cfg.dtype, st["kf"]
+        up = self._upload
+        return dict(
+            T_WS=up(T_WS, f), hp=up(st["hp"], f), lm_valid=up(st["lm_valid"]),
+            lm_packs=up(st["packs"].astype(np.int32)), T_CkC=up(st["T_CkC"], f),
+            T_WCk=up(st["T_WCk"], f), kf_uv=up(kf["uv"], f), kf_un=up(kf["un"]),
+            kf_packs=up(np.asarray(kf["packs"], np.int32)), kf_valid=up(kf["valid"]),
+            motion_on=st["motion_on"])
+
+    def _assoc_core(self, kp_uv, kp_valid, kp_packs, s: dict) -> dict:
+        """Stages 3 and 6 on the device, without a host sync: map matching
+        for every camera with one keypoint kept per landmark, rig-stereo and
+        motion-stereo initialisations.  kp_uv (C, N, 2) in the estimator's
+        dtype, kp_valid (C, N), kp_packs (C, N, 12) int32; `s` is
+        `_stage_device`'s.  The initialisations are compacted into blocks
+        of S = min(ASSOC_CAP, N) rows: the first S accepted in keypoint
+        order, then -1 (their points are then undefined).  Returns the
+        device tensors of ASSOC_KEYS: map_rows (C, N) (-1: unmatched);
+        st_i1, st_i0 (S,) cam-1 and cam-0 keypoints with st_hp (S, 4) world
+        points; mo_ic, mo_ik (S,) current and keyframe keypoints with mo_hp
+        (S, 4)."""
         cfg = self.cfg
         dev, dtype = self.device, self.est.cfg.dtype
-        C = self.num_cams
-        N = cfg.max_keypoints
+        C, N = kp_uv.shape[:2]
+        S = min(ASSOC_CAP, N)
         Lcap = self.est.cfg.cap_landmarks
-        F = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
-        B = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.bool, device=dev)  # noqa: E731
-        P = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.int32), device=dev)  # noqa: E731
-        T_WS = F(T_WS)
-        hp, lm_valid, lm_packs = F(st["hp"]), B(st["lm_valid"]), P(st["packs"])
-        kp_uv = F(np.stack([fd.uv for fd in frame_data]))
-        kp_valid = B(np.stack([fd.valid for fd in frame_data]))
-        kp_packs = [P(fd.packed) for fd in frame_data]
-        T_SC = F(self.T_SC)
+        T_WS, hp, lm_valid, lm_packs = s["T_WS"], s["hp"], s["lm_valid"], s["lm_packs"]
+        T_SC = self._T_SC_d
         ar = torch.arange(N, device=dev)
 
         # ---- map matching per camera, one keypoint kept per landmark
@@ -354,27 +460,24 @@ class VioPipeline:
             map_rows.append(torch.where(keep, m.idx_b, torch.full_like(m.idx_b, -1)))
             assigned.append(keep)
 
+        def compact(ok, idx, hp_all):
+            rows = _first_true(ok, S)
+            safe = rows.clamp(min=0)
+            return rows, torch.where(rows >= 0, idx[safe], rows), hp_all[safe]
+
         # ---- rig stereo initialisation
         cam0 = self.cameras[0]
         r0, v0 = pinhole.back_project(cam0, kp_uv[0])
-        st_rows = torch.zeros((0,), dtype=torch.int64, device=dev)
-        st_i0 = st_rows
-        st_hp = torch.zeros((0, 4), dtype=dtype, device=dev)
         stereo_assigned0 = torch.zeros((N,), dtype=torch.bool, device=dev)
         if C >= 2:
-            T_C1C0 = se3np.se3_multiply(se3np.se3_inverse(self.T_SC[1]), self.T_SC[0])
-            T_C0C1 = se3np.se3_inverse(T_C1C0)
-            E = _f32(F(se3np.cross_matrix(T_C1C0[:3]) @ se3np.quat_to_matrix(T_C1C0[3:7])))
-            fpx = float(self.np_cameras[1].fxfycxcy[1])
-            p_B = _f32(F(T_C0C1[:3]))
-            R_C0C1 = _f32(F(se3np.quat_to_matrix(T_C0C1[3:7])))
+            rig = self._rig
             un0 = kp_valid[0] & ~assigned[0]
             un1 = kp_valid[1] & ~assigned[1]
             r1, v1 = pinhole.back_project(self.cameras[1], kp_uv[1])
-            lines = r0 @ E.T
+            lines = r0 @ rig["E"].T
             num = (r1 @ lines.T).abs()
             denom = torch.linalg.norm(lines[:, :2], dim=1)[None, :] + 1e-12
-            epi_px = num / denom * fpx
+            epi_px = num / denom * rig["fpx"]
             st_allowed = (
                 (epi_px < cfg.epipolar_px * 3) & (v1 & un1)[:, None] & (v0 & un0)[None, :]
             )
@@ -382,85 +485,135 @@ class VioPipeline:
                                        st_allowed, max_dist=cfg.stereo_max_dist)
             x0 = r0[mst.idx_b]
             e_A = x0 / torch.linalg.norm(x0, dim=-1, keepdim=True)
-            eb = r1 @ R_C0C1.T
+            eb = r1 @ rig["R_C0C1"].T
             e_B = eb / torch.linalg.norm(eb, dim=-1, keepdim=True)
-            tri = triangulation.triangulate(torch.zeros_like(e_A), e_A, p_B.expand(N, 3), e_B)
+            tri = triangulation.triangulate(torch.zeros_like(e_A), e_A,
+                                            rig["p_B"].expand(N, 3), e_B)
             depth = tri.hp_A[:, 2] / torch.clamp(tri.hp_A[:, 3], min=1e-12)
             st_ok = (
                 mst.valid & tri.valid & ~tri.parallel
                 & (depth > cfg.min_triangulation_depth) & (depth < cfg.max_triangulation_depth)
             )
             T_WC0 = se3.se3_multiply(T_WS, T_SC[0])
-            st_rows = torch.nonzero(st_ok)[:ASSOC_CAP, 0]
-            st_i0 = mst.idx_b[st_rows]
-            st_hp = se3.se3_apply_homogeneous(T_WC0, tri.hp_A[st_rows])
-            stereo_assigned0[mst.idx_b[st_ok]] = True
+            st_i1, st_i0, st_hp = compact(st_ok, mst.idx_b,
+                                          se3.se3_apply_homogeneous(T_WC0, tri.hp_A))
+            # every cam-0 keypoint a stereo match took (not only the first S)
+            stereo_assigned0 = torch.zeros((N + 1,), dtype=torch.bool, device=dev).index_fill_(
+                0, torch.where(st_ok, mst.idx_b, N), True)[:N]
+        else:
+            st_i1 = st_i0 = torch.full((S,), -1, dtype=torch.int64, device=dev)
+            st_hp = torch.zeros((S, 4), dtype=dtype, device=dev)
 
         # ---- motion stereo against the last keyframe, cam0
-        kf = st["kf"]
-        kf_valid = B(kf["valid"])
         un_c = kp_valid[0] & ~assigned[0] & ~stereo_assigned0
-        r_k, v_k = pinhole.back_project(cam0, F(kf["uv"]))
+        r_k, v_k = pinhole.back_project(cam0, s["kf_uv"])
         mo_allowed = (
-            (un_c & v0)[:, None] & (B(kf["un"]) & v_k)[None, :] & bool(st["motion_on"])
+            (un_c & v0)[:, None] & (s["kf_un"] & v_k)[None, :] & bool(s["motion_on"])
         )
-        mmo = matcher.match_masked(kp_packs[0], kp_valid[0], P(kf["packs"]), kf_valid,
+        mmo = matcher.match_masked(kp_packs[0], kp_valid[0], s["kf_packs"], s["kf_valid"],
                                    mo_allowed, max_dist=cfg.stereo_max_dist, mutual=True)
-        mo_idx, mo_val = mmo.idx_b, mmo.valid
-        T_CkC = F(st["T_CkC"])
+        T_CkC = s["T_CkC"]
         R_k = _f32(se3.quat_to_matrix(se3.se3_q(T_CkC)))
         p_Bk = _f32(se3.se3_t(T_CkC))
-        xk = r_k[mo_idx]
+        xk = r_k[mmo.idx_b]
         e_A = xk / torch.linalg.norm(xk, dim=-1, keepdim=True)
         eb = r0 @ R_k.T
         e_B = eb / torch.linalg.norm(eb, dim=-1, keepdim=True)
         tri = triangulation.triangulate(torch.zeros_like(e_A), e_A, p_Bk.expand(N, 3), e_B)
         depth = tri.hp_A[:, 2] / torch.clamp(tri.hp_A[:, 3], min=1e-12)
         mo_ok = (
-            mo_val & tri.valid & ~tri.parallel
+            mmo.valid & tri.valid & ~tri.parallel
             & (depth > cfg.min_triangulation_depth) & (depth < cfg.max_triangulation_depth)
         )
-        mo_rows = torch.nonzero(mo_ok)[:ASSOC_CAP, 0]
-        mo_hp = se3.se3_apply_homogeneous(F(st["T_WCk"]), tri.hp_A[mo_rows])
-
-        host = lambda x: x.cpu().numpy()  # noqa: E731
-        return dict(
-            map_rows=host(torch.stack(map_rows)),
-            st_i1=host(st_rows), st_i0=host(st_i0), st_hp=host(st_hp),
-            mo_ic=host(mo_rows), mo_ik=host(mo_idx[mo_rows]), mo_hp=host(mo_hp),
-        )
+        mo_ic, mo_ik, mo_hp = compact(mo_ok, mmo.idx_b,
+                                      se3.se3_apply_homogeneous(s["T_WCk"], tri.hp_A))
+        return dict(map_rows=torch.stack(map_rows), st_i1=st_i1, st_i0=st_i0, st_hp=st_hp,
+                    mo_ic=mo_ic, mo_ik=mo_ik, mo_hp=mo_hp)
 
     def _assoc_consume(self, fid: int, frame_data: List[FrameData], st: dict, res: dict):
-        """Assign landmark ids, add observations, create stereo/motion
-        landmarks; returns (n_map, n_stereo, n_motion)."""
+        """Consume the association's results (host arrays of ASSOC_KEYS):
+        assign landmark ids, add observations, create stereo/motion
+        landmarks; returns (n_map, n_stereo, n_motion).  Matched landmarks
+        pruned since the staging are skipped; under the deferred frontend a
+        new stereo or motion landmark is identified with an existing one
+        that reprojects onto its cam-0 keypoint within 3 px at a consistent
+        range (cycles in flight cannot see landmarks born after their
+        dispatch)."""
         est = self.est
         nl, lids, kf_fid = st["nl"], st["lids"], st["kf_fid"]
-        map_rows = res["map_rows"]
+        ix = lambda k: np.asarray(res[k]).astype(np.int64)  # noqa: E731
+        map_rows = ix("map_rows")
+        st_i1, st_i0, mo_ic, mo_ik = ix("st_i1"), ix("st_i0"), ix("mo_ic"), ix("mo_ik")
+        st_hp, mo_hp = np.asarray(res["st_hp"]), np.asarray(res["mo_hp"])
 
         n_map = 0
+        live_lids = np.fromiter(est.lm_index.keys(), np.int64, len(est.lm_index))
         for c, fd in enumerate(frame_data):
             ks = np.nonzero(map_rows[c] >= 0)[0]
             ks = ks[(map_rows[c][ks] < nl) & (fd.lid[ks] < 0)]
+            cand = lids[map_rows[c][ks]]
+            alive = np.isin(cand, live_lids)
+            ks, cand = ks[alive], cand[alive]
             if len(ks) == 0:
                 continue
-            fd.lid[ks] = lids[map_rows[c][ks]]
+            fd.lid[ks] = cand
             est.add_observations_batch(fid, c, fd.lid[ks], fd.uv[ks])
             n_map += len(ks)
+
+        dedup = None
+        if self.cfg.deferred_frontend and est.lm_ids:
+            try:
+                uv_pred, vis_pred = self._project_landmarks(0, est.get_state(fid).T_WS, est.hp_W)
+                w = np.where(np.abs(est.hp_W[:, 3]) > 1e-9, est.hp_W[:, 3], 1.0)
+                dedup = (np.array(est.lm_ids, np.int64), est.hp_W[:, :3] / w[:, None],
+                         uv_pred, vis_pred)
+            except KeyError:
+                dedup = None
+        claimed = set()
+        for fd in frame_data:
+            claimed.update(fd.lid[fd.lid >= 0].tolist())
+
+        def dedup_nn(kp_uvs, hps):
+            """The landmark reprojecting nearest each candidate's keypoint
+            (within 3 px, at a range within 10%), else -1."""
+            out = np.full(len(kp_uvs), -1, np.int64)
+            if dedup is None or len(kp_uvs) == 0:
+                return out
+            lids_t, p_t, uv_t, vis_t = dedup
+            dpx = np.linalg.norm(uv_t[None, :, :] - kp_uvs[:, None, :], axis=2)
+            dpx[:, ~vis_t] = np.inf
+            j = np.argmin(dpx, axis=1)
+            best = dpx[np.arange(len(j)), j]
+            w = np.where(np.abs(hps[:, 3]) > 1e-9, hps[:, 3], 1.0)
+            p_new = hps[:, :3] / w[:, None]
+            d3 = np.linalg.norm(p_t[j] - p_new, axis=1)
+            ok = (best < 3.0) & (d3 < 0.1 * np.maximum(np.linalg.norm(p_new, axis=1), 1.0))
+            out[ok] = lids_t[j[ok]]
+            return out
+
+        def dedup_or_add(nn_lid, hp_new):
+            if nn_lid >= 0 and nn_lid not in claimed and nn_lid in est.lm_index:
+                return int(nn_lid)
+            return est.add_landmark(hp_new)
 
         n_stereo = 0
         if self.num_cams >= 2:
             fd0, fd1 = frame_data[0], frame_data[1]
             used0 = set()
             new_lid, new_i0, new_i1 = [], [], []
-            for r in range(len(res["st_i1"])):
-                i1, i0 = int(res["st_i1"][r]), int(res["st_i0"][r])
+            rows = np.nonzero(st_i1 >= 0)[0]
+            nn = np.full(len(st_i1), -1, np.int64)
+            nn[rows] = dedup_nn(fd0.uv[st_i0[rows]], st_hp[rows])
+            for r in rows:
+                i1, i0 = int(st_i1[r]), int(st_i0[r])
                 if i0 in used0 or fd0.lid[i0] >= 0 or fd1.lid[i1] >= 0:
                     continue
                 used0.add(i0)
-                lid = est.add_landmark(res["st_hp"][r])
+                lid = dedup_or_add(nn[r], st_hp[r])
                 if lid < 0:
                     continue
-                self.lm_desc[lid] = fd0.packed[i0]
+                claimed.add(lid)
+                self._set_landmark_desc(lid, fd0, i0)
                 fd0.lid[i0] = lid
                 fd1.lid[i1] = lid
                 new_lid.append(lid)
@@ -478,15 +631,19 @@ class VioPipeline:
             fd = frame_data[0]
             used_k = set()
             new_lid, new_ic, new_ik = [], [], []
-            for r in range(len(res["mo_ic"])):
-                i_c, i_k = int(res["mo_ic"][r]), int(res["mo_ik"][r])
+            rows = np.nonzero(mo_ic >= 0)[0]
+            nn = np.full(len(mo_ic), -1, np.int64)
+            nn[rows] = dedup_nn(fd.uv[mo_ic[rows]], mo_hp[rows])
+            for r in rows:
+                i_c, i_k = int(mo_ic[r]), int(mo_ik[r])
                 if i_k in used_k or fd.lid[i_c] >= 0 or kfd.lid[i_k] >= 0:
                     continue
                 used_k.add(i_k)
-                lid = est.add_landmark(res["mo_hp"][r])
+                lid = dedup_or_add(nn[r], mo_hp[r])
                 if lid < 0:
                     continue
-                self.lm_desc[lid] = kfd.packed[i_k]
+                claimed.add(lid)
+                self._set_landmark_desc(lid, kfd, i_k)
                 fd.lid[i_c] = lid
                 kfd.lid[i_k] = lid
                 new_lid.append(lid)
@@ -498,14 +655,27 @@ class VioPipeline:
                 est.add_observations_batch(fid, 0, new_lid, fd.uv[np.asarray(new_ic)])
         return n_map, n_stereo, n_motion
 
+    def _set_landmark_desc(self, lid: int, fd: FrameData, k: int):
+        """Give a landmark keypoint k's descriptor of `fd`, or queue the
+        assignment while the frame's descriptor block is in flight."""
+        if fd.packed is not None:
+            self.lm_desc[lid] = fd.packed[k]
+        else:
+            fd.desc_todo.append((lid, k))
+
     def associate(self, fid: int, frame_data: List[FrameData]):
-        """Stages 3 + 6; returns (n_map, n_stereo, n_motion) and updates the
-        estimator tables."""
+        """Stages 3 + 6 of the synchronous path: the association core on
+        the frame's keypoints, read back at once; returns (n_map, n_stereo,
+        n_motion) and updates the estimator tables."""
         f = self.est.get_state(fid)
         st = self._assoc_stage(f.T_WS)
-        res = self._assoc_core(f.T_WS, st, frame_data)
-        return self._assoc_consume(fid, frame_data, st, res)
-
+        dtype = self.est.cfg.dtype
+        kp_uv = self._upload(np.stack([fd.uv for fd in frame_data]), dtype)
+        kp_valid = self._upload(np.stack([fd.valid for fd in frame_data]))
+        kp_packs = self._upload(np.stack([fd.packed for fd in frame_data]).astype(np.int32))
+        res = self._assoc_core(kp_uv, kp_valid, kp_packs, self._stage_device(f.T_WS, st))
+        return self._assoc_consume(fid, frame_data, st,
+                                   {k: v.cpu().numpy() for k, v in res.items()})
     # ------------------------------------------------------- keyframe policy
     @staticmethod
     def _dilate_disc(m: np.ndarray, r: int) -> np.ndarray:
@@ -1043,8 +1213,11 @@ class VioPipeline:
         cfg = self.cfg
         frame_data = self.frames.get(fid)
         if frame_data is not None:
-            # refresh landmark descriptors with the freshest observation
+            # refresh landmark descriptors with the freshest observation (a
+            # block in flight does it when it lands, `_drain_desc`)
             for fd in frame_data:
+                if fd.packed is None:
+                    continue
                 for k in np.nonzero(fd.lid >= 0)[0]:
                     self.lm_desc[fd.lid[k]] = fd.packed[k]
         try:
@@ -1069,14 +1242,18 @@ class VioPipeline:
             # indexed, but not queried
             in_cooldown = self.path_length - self._lc_last_path < cfg.loop_cooldown_m
             with timing.Timer("2.8 LoopClosure"):
-                self._record_keyframe(fid, t, frame_data)
-                if use_async_pr:
-                    self._lc_enqueue(fid, t, index_only=in_cooldown)
-                elif not in_cooldown:
-                    looped = self._attempt_loop_closure(fid, t) or looped
+                if frame_data[0].packed is None:
+                    # recorded and queued when the descriptor block lands
+                    self._kf_lc_todo[fid] = t
                 else:
-                    rec = self.kf_records[fid]
-                    self.bow_db.add(fid, self._keyframe_words(rec), rec["valid"])
+                    self._record_keyframe(fid, t, frame_data)
+                    if use_async_pr:
+                        self._lc_enqueue(fid, t, index_only=in_cooldown)
+                    elif not in_cooldown:
+                        looped = self._attempt_loop_closure(fid, t) or looped
+                    else:
+                        rec = self.kf_records[fid]
+                        self.bow_db.add(fid, self._keyframe_words(rec), rec["valid"])
         if looped:
             est.optimise()
 
@@ -1102,9 +1279,12 @@ class VioPipeline:
         """One stereo frame.  Returns the frame's info; with `pipelined_solve`
         its pose is the IMU prediction (the solved pose replaces it in
         `states_log` when the solve is collected) and `loop_closure` is
-        False (closures are applied while collecting the previous frame)."""
+        False (closures are applied while collecting the previous frame).
+        With `deferred_frontend` see `_process_frame_deferred`."""
         if depth_images is not None:
             raise NotImplementedError("depth input is not ported yet")
+        if self.cfg.deferred_frontend:
+            return self._process_frame_deferred(t, images)
         est = self.est
         if self._pending is None:
             # fold a finished background optimisation in before the window
@@ -1152,16 +1332,276 @@ class VioPipeline:
             loop_closure=looped, tracking_quality=quality,
         )
 
+    # ---------------------------------------------- deferred frontend cycle
+    def _stage_images(self, images: List[np.ndarray]) -> torch.Tensor:
+        """Pack the frame's images and start their upload (`_upload`), so
+        that it streams while the host waits on the previous cycle."""
+        return self._upload(self._pack_images(images))
+
+    def frontend_dispatch(self, fid: int, t: float, imgs_d: torch.Tensor,
+                          T_WS_pred: np.ndarray) -> dict:
+        """Launch this frame's fused frontend, `imgs_d` from
+        `_stage_images`: detection, description and association of every
+        camera as one chain of launches on the current stream with no host
+        sync (the staging uploads go through pinned memory).  Returns the
+        handle that `frontend_consume` takes once the cycle's critical block
+        has landed: the critical block `crit`, a float64 vector [uv (C, N,
+        2) | valid (C, N) | ASSOC_KEYS], and the descriptor block `desc`
+        (C, N, 12) int32, both on the device."""
+        st = self._assoc_stage(T_WS_pred)
+        s = self._stage_device(T_WS_pred, st)
+        uv, valid, packed = self._detect_describe_device(
+            imgs_d, self._gravity_angles(imgs_d.shape[0], T_WS_pred))
+        res = self._assoc_core(uv.to(self.est.cfg.dtype), valid, packed, s)
+        crit = torch.cat([uv.reshape(-1).to(torch.float64), valid.reshape(-1).to(torch.float64)]
+                         + [res[k].reshape(-1).to(torch.float64) for k in ASSOC_KEYS])
+        return dict(fid=fid, t=t, crit=crit, desc=packed, stage=st, log_idx=len(self.states_log))
+
+    def frontend_consume(self, h: dict, crit: np.ndarray):
+        """Consume a landed critical block: the frame's keypoints (its
+        descriptors land later, `_drain_desc`) and its association.  Returns
+        (frame_data, (n_map, n_stereo, n_motion))."""
+        C, N = self.num_cams, self.cfg.max_keypoints
+        S = min(ASSOC_CAP, N)
+        shapes = dict(map_rows=(C, N), st_i1=(S,), st_i0=(S,), st_hp=(S, 4), mo_ic=(S,),
+                      mo_ik=(S,), mo_hp=(S, 4))
+        uv = crit[:C * N * 2].reshape(C, N, 2)
+        valid = crit[C * N * 2:C * N * 3].reshape(C, N) > 0
+        res, o = {}, C * N * 3
+        for k in ASSOC_KEYS:
+            n = int(np.prod(shapes[k]))
+            res[k] = crit[o:o + n].reshape(shapes[k])
+            o += n
+        frame_data = [FrameData(uv=uv[c].copy(), valid=valid[c].copy(), packed=None)
+                      for c in range(C)]
+        self.frames[h["fid"]] = frame_data
+        return frame_data, self._assoc_consume(h["fid"], frame_data, h["stage"], res)
+
+    def _to_host(self, x: torch.Tensor) -> torch.Tensor:
+        """Start the copy of a device result into pinned host memory on the
+        current stream (on the CPU: the tensor itself)."""
+        if x.device.type != "cuda":
+            return x
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return out.copy_(x, non_blocking=True)
+
+    def _mark(self):
+        """A CUDA event after the work queued so far on the current stream
+        (None on the CPU, where everything has happened)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _submit_item(self, item: dict):
+        """Start the host copies of a cycle: the critical block first (event
+        `crit_ev`), then the rows of the deferred edge jobs (`ev`), then the
+        descriptor block (`desc_ev`), which does not gate the frame path.
+        The frame thread waits on these events; no thread is involved."""
+        item["crit"] = self._to_host(item["front"]["crit"])
+        item["crit_ev"] = self._mark()
+        item["edges"] = [self._to_host(job["out"]) for job in item["edge_jobs"]]
+        item["ev"] = self._mark()
+        item["desc"] = self._to_host(item["front"]["desc"])
+        item["desc_ev"] = self._mark()
+        self._inflight.append(item)
+
+    @staticmethod
+    def _wait(ev):
+        if ev is not None:
+            ev.synchronize()
+
+    def _pop_item(self) -> dict:
+        item = self._inflight.popleft()
+        self._wait(item["ev"])
+        return item
+
+    def _drain_desc(self, wait: bool = False):
+        """Fold the descriptor blocks that have landed (all, with `wait`)
+        into their frames: fill `FrameData.packed`, apply the queued
+        landmark descriptors, refresh the matched landmarks' descriptors,
+        and run the keyframe record and place-recognition step that waited
+        on them.  A block still in flight counts in `n_desc_late`."""
+        done = []
+        for fid, (item, frame_data) in self._desc_pending.items():
+            ev = item["desc_ev"]
+            if wait:
+                self._wait(ev)
+            elif ev is not None and not ev.query():
+                self.n_desc_late += 1
+                continue
+            desc = item["desc"].numpy()
+            for c, fd in enumerate(frame_data):
+                fd.packed = desc[c].copy()
+                for lid, k in fd.desc_todo:
+                    if lid in self.est.lm_index:
+                        self.lm_desc[lid] = fd.packed[k]
+                fd.desc_todo = []
+                for k in np.nonzero(fd.lid >= 0)[0]:
+                    if fd.lid[k] in self.est.lm_index:
+                        self.lm_desc[fd.lid[k]] = fd.packed[k]
+            kf_t = self._kf_lc_todo.pop(fid, None)
+            if kf_t is not None and self.cfg.do_loop_closures:
+                in_cooldown = self.path_length - self._lc_last_path < self.cfg.loop_cooldown_m
+                self._record_keyframe(fid, kf_t, frame_data)
+                if self._lc_thread is not None:
+                    self._lc_enqueue(fid, kf_t, index_only=in_cooldown)
+                elif not in_cooldown and self._attempt_loop_closure(fid, kf_t):
+                    self.est.optimise()
+            done.append(fid)
+        for fid in done:
+            del self._desc_pending[fid]
+
+    def _consume_crit(self, item: dict):
+        """The critical block of a cycle: the frame's association and
+        keyframe decision (reported by the next info dict); the frame's
+        window solve is built after the next frontend launch
+        (`_dispatch_pending_solve`)."""
+        est = self.est
+        front = item["front"]
+        fid, t = front["fid"], front["t"]
+        with timing.Timer("2.3 AssocConsume"):
+            frame_data, counts = self.frontend_consume(front, item["crit"].numpy())
+        self._desc_pending[fid] = (item, frame_data)
+        self._last_counts = counts
+        self._last_quality = self._tracking_quality(frame_data)
+        is_kf = self.need_keyframe(frame_data)
+        est.set_keyframe(fid, is_kf)
+        self._kf_event = (fid, is_kf)
+        if is_kf:
+            self.last_kf_fid = fid
+        self._solve_todo = dict(fid=fid, t=t, is_kf=is_kf, log_idx=front["log_idx"])
+
+    def _consume_rest(self, item: dict):
+        """The rest of a cycle, before the next problem is built: the
+        deferred marginalisation edges, then the window solve the cycle
+        carried (solved here), the background synchronisation, the frame's
+        post-solve stages, and the prediction of the newer states from the
+        corrected ones."""
+        est = self.est
+        for job, out in zip(item["edge_jobs"], item["edges"]):
+            est.apply_pending_edges(job, out.numpy())
+        if item["solve"] is None:
+            return
+        meta = item["solve_meta"]
+        with timing.Timer("2.5 CollectSolve"):
+            est.optimise_gated_collect(item["solve"])
+        self.synchronise_full_graph()
+        self._finish_frame(meta["fid"], meta["t"], meta["is_kf"], meta["log_idx"])
+        live = {fr.fid for fr in est.frames}
+        solved = [f2 for f2 in item["solve"]["fid2slot"] if f2 in live]
+        if solved:
+            est.repredict_after(max(solved))
+
+    def _process_frame_deferred(self, t: float, images: List[np.ndarray]) -> dict:
+        """One frame under the deferred frontend.  Consume the cycles due
+        (`pipeline_depth` stay in flight; one while the map is empty or in
+        the first `pipeline_ramp_frames` frames), strictly in order: the
+        rest of the payload (solve, edges, marginalisation, background
+        synchronisation) before the critical block (association), so that
+        no surgery lands between a staging and its association.  Then fold
+        in the landed descriptor blocks, launch this frame's frontend, build
+        the solve of the frame just consumed, and start the cycle's copies.
+
+        Returns the JAX package's deferred info: the pose is the IMU
+        prediction (corrected in `states_log` when its solve lands); the
+        counts, quality and keyframe decision (`keyframe_fid`) are those of
+        the frame consumed in this call; `loop_closure` is False;
+        `budget_overrun` and `realtime_iterations` come from the budget
+        controller, fed with the wait on the critical block."""
+        cfg, est = self.cfg, self.est
+        with timing.Timer("2.1 AddState"):
+            fid = est.add_state(t)
+        f = est.get_state(fid)
+        imgs_d = self._stage_images(images)
+        self._n_frames_seen += 1
+        depth = 1 if self._n_frames_seen <= cfg.pipeline_ramp_frames else cfg.pipeline_depth
+        budget_overrun = False
+        while len(self._inflight) >= depth or (self._inflight and not est.lm_ids):
+            t0 = time.perf_counter()
+            with timing.Timer("2.0 PrefetchWait"):
+                item = self._inflight.popleft()
+                self._wait(item["crit_ev"])
+            budget_overrun = est.adapt_realtime_budget(time.perf_counter() - t0) or budget_overrun
+            self._wait(item["ev"])
+            self._consume_rest(item)
+            self._consume_crit(item)
+            f = est.get_state(fid)
+        self._drain_desc()
+        with timing.Timer("2.2 FrontDispatch"):
+            h_front = self.frontend_dispatch(fid, t, imgs_d, f.T_WS)
+        self._dispatch_pending_solve()
+        nxt = self._next_solve or {}
+        self._next_solve = None
+        item = dict(front=h_front, solve=nxt.get("solve"), solve_meta=nxt.get("solve_meta"),
+                    edge_jobs=est.pending_edge_jobs)
+        est.pending_edge_jobs = []
+        self._submit_item(item)
+        self.states_log.append((t, f.T_WS.copy()))
+        n_map, n_stereo, n_motion = self._last_counts
+        kf_fid, kf_flag = self._kf_event
+        self._kf_event = (None, False)
+        return dict(
+            fid=fid, is_keyframe=bool(kf_flag), keyframe_fid=kf_fid if kf_flag else None,
+            n_map=n_map, n_stereo=n_stereo, n_motion=n_motion, T_WS=f.T_WS.copy(),
+            loop_closure=False, tracking_quality=self._last_quality,
+            budget_overrun=budget_overrun, realtime_iterations=est._rt_iters,
+        )
+
+    def _dispatch_pending_solve(self):
+        """Build the gated window solve of the frame the last consume
+        finished; its handle rides the cycle submitted next."""
+        todo, self._solve_todo = self._solve_todo, None
+        if todo is None:
+            return
+        gate_px = self.cfg.chi2_px * self.est.cfg.keypoint_sigma_px * 3
+        with timing.Timer("2.6 DispatchSolve"):
+            h = self.est.optimise_gated_dispatch(todo["fid"], gate_px)
+        self._next_solve = dict(solve=h, solve_meta=todo)
+
+    def _drain_deferred(self):
+        """Dataset end: consume every cycle in flight (critical block, then
+        the rest), then collect the solves built meanwhile in the order they
+        were built (newer estimates are never overwritten by older ones),
+        and fold in the edge jobs still pending (the final BA's archive
+        needs them)."""
+        if not self.cfg.deferred_frontend:
+            return
+        pending = []
+        if self._next_solve is not None:
+            pending.append(self._next_solve)
+            self._next_solve = None
+        while self._inflight:
+            item = self._pop_item()
+            self._consume_crit(item)
+            self._consume_rest(item)
+            self._dispatch_pending_solve()
+            if self._next_solve is not None:
+                pending.append(self._next_solve)
+                self._next_solve = None
+        self._drain_desc(wait=True)
+        for nxt in pending:
+            self.est.optimise_gated_collect(nxt["solve"])
+            self.synchronise_full_graph()
+            m = nxt["solve_meta"]
+            self._finish_frame(m["fid"], m["t"], m["is_kf"], m["log_idx"])
+        for job in self.est.pending_edge_jobs:
+            self.est.apply_pending_edges(job, job["out"].cpu().numpy())
+        self.est.pending_edge_jobs = []
+
     def load_component(self, path: str, fixed: bool = True) -> bool:
         raise NotImplementedError("multi-session relocalisation is not ported yet")
 
     def finish(self):
-        """Dataset end: collect the pending window solve, let the
-        recognition worker finish its queue and stop, apply its last
+        """Dataset end: collect the pending window solve, consume the
+        deferred frontend's cycles in flight, let the recognition worker
+        finish its queue and stop, apply its last
         proposals (then a window re-solve and a background dispatch), and
         join and apply the background optimisation; `est.final_ba()` may
         follow."""
         self._collect_pending()
+        self._drain_deferred()
         self._lc_drain()
         worker_live = self._lc_thread is not None and self._lc_thread.is_alive()
         if self._lc_results is not None and not worker_live and self._lc_poll():

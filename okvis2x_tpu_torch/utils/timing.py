@@ -94,3 +94,9 @@ def reset():
 def mean_ms(name: str) -> float:
     a = _registry.get(name)
     return (a.total / a.n * 1e3) if a and a.n else 0.0
+
+
+def total_s(name: str) -> float:
+    """Seconds recorded under `name` so far (0 when none)."""
+    a = _registry.get(name)
+    return a.total if a else 0.0

@@ -300,12 +300,12 @@ def test_lc_match_matches_jax():
 
 # ------------------------------------------------------- what is not ported
 @pytest.mark.parametrize("unported", [
-    dict(vocab_path=""), dict(full_ba_threshold=64), dict(deferred_frontend=True),
-    "load_component",
+    dict(vocab_path=""), dict(segmentation="heuristic"),
+    dict(deferred_frontend=True, segmentation="net"), "load_component",
 ])
 def test_unported_loop_closure_features_raise(unported):
-    """Online vocabulary training, the background complete-factor-graph BA,
-    the deferred frontend and relocalisation raise instead of running
+    """Online vocabulary training, semantic keypoint weighting (also inside
+    the deferred fused frontend) and relocalisation raise instead of running
     something else."""
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig as TPipelineConfig
 

@@ -389,4 +389,4 @@ def test_convert_round_trips(window):
                                                    pose_refine=False, pipelined_solve=False))
     assert pcfg.max_keypoints == 256 and not pcfg.do_loop_closures
     with pytest.raises(NotImplementedError):
-        convert.pipeline_config(JPipelineConfig(deferred_frontend=True)).check_ported()
+        convert.pipeline_config(JPipelineConfig(segmentation="heuristic")).check_ported()
