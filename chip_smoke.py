@@ -30,7 +30,7 @@
    finite, the association must have launched the fused kernel 4 times a
    frame, and the online position ATE must be at most 0.25 m; the first
    frames are also run on the CPU (plain versions) and must agree with the
-   GPU run (the CPU halves of this check and of phase 8 run meanwhile in a
+   GPU run (the CPU halves of this check and of phase 9 run meanwhile in a
    spawned process);
 5. ratio-test matching: the cam-0 descriptors of the last two frames of that
    run through `matcher.match` with Lowe's ratio test and the mutual check,
@@ -38,14 +38,27 @@
    been launched and the matches must equal the CPU's;
 6. synchronous loop closure: the same operating point on a circuit of
    radius 0.8 m (one lap in about 125 frames; 150 frames rendered once for
-   phases 6 to 8, which run 128, 128 and 150 of them) with the synchronous, non-pipelined path (BoW place
+   phases 6 to 9, which run 128, 30, 128 and 150 of them) with the synchronous, non-pipelined path (BoW place
    recognition on the shipped vocabulary, loop matching, non-central
    RANSAC, in-line pose-graph solve), then `finish()` and the final BA: at
    least one closure must be accepted, the fused kernel must have been
    launched from the vocabulary descent and the loop matching, every pose
    must be finite, and the online and final ATE must both be at most
    0.25 m;
-7. asynchronous loop closure on the same frames: the flagship configuration
+7. multi-session: phase 6's pipeline is session A and is saved as a map
+   component; session B is a new pipeline without a vocabulary file
+   (`vocab_path=""`) in phase 6's configuration that loads it (a vocabulary
+   of 256 words bootstrapped from A's descriptors: binary k-means on the
+   fused kernel) and runs the first 30 frames from a world frame 1.5 m
+   lateral and 0.1 rad of yaw off A's (moved so right after the
+   estimator's first state, before the first keyframe is recorded): B must
+   relocalise, its poses from then on must lie within 0.2 m and 0.05 rad
+   of A's estimate of the same frames, the vocabulary must equal the plain
+   trainer's on the same descriptors and seed on the card, one
+   verification's mutual match must equal the plain version's, and the
+   fused kernel must have been launched from the sites "vocab" and
+   "reloc";
+8. asynchronous loop closure on the same frames: the flagship configuration
    of tools/slam_bench.py without its deferred frontend (place recognition
    on the worker thread, the background optimisation of the history,
    pipelined solve, the realtime budget controller at 35 ms with at least 6
@@ -54,17 +67,17 @@
    background full BA must have been synchronised, the worker must have
    stopped, and the words the worker computed on its stream for a keyframe
    must equal the CPU's;
-8. the flagship on the same frames: tools/slam_bench.py's configuration as
+9. the flagship on the same frames: tools/slam_bench.py's configuration as
    written (the deferred fused frontend at depth 1, asynchronous loop
    closure, the budget controller), then `finish()` and the final BA: the
-   checks of phase 7 (a background pose graph synchronised), every
+   checks of phase 8 (a background pose graph synchronised), every
    `frontend_dispatch` free of host syncs under
    `torch.cuda.set_sync_debug_mode`, the fused kernel's results at the
    association's call sites equal to its plain version on the same inputs,
    and the first frames equal to those of the same run on the CPU; it prints
    the wait on the critical block, the descriptor blocks still in flight
    when folded in, the iteration budget and the frame times;
-9. the matrix-free PCG pose-graph solver on drifted circles with loop
+10. the matrix-free PCG pose-graph solver on drifted circles with loop
    edges at 300 and 1000 nodes: the card's poses within 1e-6 of the CPU's,
    and its time per solve.
 
@@ -122,6 +135,11 @@ LC_PIPES = {
     "flagship": FLAGSHIP_PIPE,
 }
 LC_ESTS = {"synchronous": {}, "asynchronous": FLAGSHIP_EST, "flagship": FLAGSHIP_EST}
+# the multi-session phase: session B runs this many frames from a world frame
+# 1.5 m lateral and 0.1 rad of yaw off session A's (tests/test_multisession.py)
+MS_FRAMES = 30
+MS_OFFSET = (1.5, 0.1)
+MS_POS_TOL_M, MS_ROT_TOL_RAD = 0.2, 0.05
 COMPARE_EVERY = 16  # flagship frames between two holds of the kernel against its plain version
 PCG_NODES = (300, 1000)
 PCG_ITERATIONS = 15  # PipelineConfig.full_graph_iterations
@@ -276,6 +294,11 @@ def match_forms(rng, dev):
         ("vocabulary leaves, row_seg 704x4096",
          *make(704, 4096, validity=False, seg=64, row_seg=True)),
         ("all leaves 704x4096", *make(704, 4096, validity=False)),
+        # the multi-session phase: k-means assignment of session A's
+        # descriptors to 256 centres; the relocalisation's mutual match is
+        # the form "mutual, 385 fills" at 704x704
+        ("vocabulary training 20000x256", *make(20000, 256, validity=False)),
+        ("reloc mutual, 385 fills 704x704", *make(704, 704, fill_invalid=385, want_cols=True)),
         ("one cell 1x1", *make(1, 1, allowed=True, want_cols=True, **matcher_fills)),
         ("ragged 37x53", *make(37, 53, allowed=True, want_cols=True, **matcher_fills)),
         ("ragged, unaligned mask 257x513",
@@ -640,7 +663,8 @@ def vio_phase(dev, card, cpu_positions):
     """N_FRAMES frames of VIO on the GPU under the JAX default configuration,
     against the CPU's first frames (`cpu_positions`, a future of
     `vio_cpu_positions`), then ratio-test matching of the last two frames.
-    Returns the launches of the (fused, matrix) kernels on these paths."""
+    Returns the fused kernel's launches by site and the matrix kernel's
+    launches on these paths."""
     import torch
     from okvis2x_tpu_torch.ops import hamming
     from okvis2x_tpu_torch.utils import timing
@@ -686,7 +710,7 @@ def vio_phase(dev, card, cpu_positions):
           f"(CPU run {t_cpu:.1f} s, in a process of its own)")
     if not gap <= CPU_GPU_TOL_M:
         raise RuntimeError(f"GPU and CPU runs disagree by {gap} m")
-    return launches, ratio_match_phase(vio, dev)
+    return sites, ratio_match_phase(vio, dev)
 
 
 def ratio_match_phase(vio, dev):
@@ -819,7 +843,7 @@ def loop_closure_phase(dev, card, mode, seq, cpu_positions=None):
     non-pipelined path), "asynchronous" (the flagship without its deferred
     frontend, with the background full BA) or "flagship" (tools/slam_bench.py
     as written; `cpu_positions` is a future of `flagship_cpu_positions`).
-    Returns the fused kernel's launches."""
+    Returns the fused kernel's launches by site and the pipeline."""
     import torch
     from okvis2x_tpu_torch.frontend import bow
     from okvis2x_tpu_torch.ops import hamming
@@ -937,7 +961,161 @@ def loop_closure_phase(dev, card, mode, seq, cpu_positions=None):
         if not gap <= CPU_GPU_TOL_M:
             raise RuntimeError(f"{what}: GPU and CPU runs disagree by {gap} m")
     print(timing.report())
-    return launches
+    return sites, vio
+
+
+class MatchRecorder:
+    """Keeps the inputs and outputs of the calls of
+    `hamming.match_packed_mutual` from one site while installed."""
+
+    def __init__(self, site):
+        self.site, self.calls = site, []
+
+    def __enter__(self):
+        from okvis2x_tpu_torch.ops import hamming
+
+        self.orig = hamming.match_packed_mutual
+
+        def call(*args, **kw):
+            out = self.orig(*args, **kw)
+            if kw.get("site") == self.site:
+                self.calls.append((args, dict(kw), out))
+            return out
+
+        hamming.match_packed_mutual = call
+        return self
+
+    def __exit__(self, *exc):
+        from okvis2x_tpu_torch.ops import hamming
+
+        hamming.match_packed_mutual = self.orig
+
+
+def plain_match():
+    """A context in which `hamming.hamming_match` is its plain version (on
+    the card too): for holding a whole site against it."""
+    import contextlib
+
+    from okvis2x_tpu_torch.ops import hamming
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = hamming.hamming_match
+        hamming.hamming_match = lambda *a, site=None, **kw: hamming.hamming_match_plain(*a, **kw)
+        try:
+            yield
+        finally:
+            hamming.hamming_match = orig
+
+    return ctx()
+
+
+def rot_err(qa, qb):
+    """Angles (rad) between the rotations of unit quaternions (..., 4)."""
+    return 2 * np.arccos(np.clip(np.abs(np.sum(qa * qb, axis=-1)), 0, 1))
+
+
+def multisession_phase(dev, card, vio_a, seq):
+    """Session A (the synchronous phase's pipeline) saved as a component;
+    session B, a new pipeline on the card without a vocabulary file
+    (`vocab_path=""`) in the synchronous configuration, loads it (its
+    vocabulary bootstrapped from A's descriptors on the kernel, site
+    "vocab") and runs MS_FRAMES frames of the same rendering from a world
+    frame that is MS_OFFSET off A's (put on after the estimator's first
+    state, before the first keyframe is recorded).  B's keyframes are
+    verified against A's (site "reloc").  Returns the fused kernel's
+    launches by site."""
+    import os
+    import tempfile
+
+    import torch
+    from okvis2x_tpu_torch.core import se3np
+    from okvis2x_tpu_torch.frontend import bow
+    from okvis2x_tpu_torch.graph import component
+    from okvis2x_tpu_torch.ops import hamming
+
+    what = "multi-session"
+    t0 = time.perf_counter()
+    offset = se3np.se3_multiply(
+        np.array([0.0, MS_OFFSET[0], 0.0, 0, 0, 0, 1.0]),
+        np.concatenate([[0.0, 0.0, 0.0], se3np.delta_q(np.array([0.0, 0.0, MS_OFFSET[1]]))]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session_a.npz")
+        vio_a.save_component(path)
+        comp = component.load_component(path)
+        print(f"{what}: session A saved, {len(comp['frame_fids'])} pose-graph nodes, "
+              f"{len(comp['records'])} keyframe records, {os.path.getsize(path) / 2**20:.2f} MiB")
+
+        def prepare(vio):
+            """Load A, then put B's world frame off A's at its first state."""
+            if not vio.load_component(path):
+                raise RuntimeError(f"{what}: load_component refused session A")
+            add_state = vio.est.add_state
+
+            def first_state(t):
+                fid = add_state(t)
+                vio.est.rigid_transform(offset, session_only=True)
+                vio.est.add_state = add_state
+                return fid
+
+            vio.est.add_state = first_state
+
+        hamming.reset_launch_counts()
+        with MatchRecorder("reloc") as rec:
+            vio, infos, wall, _, _, _ = run_pipeline(
+                seq, dev, MS_FRAMES, record_times=True, est_kw=LC_ESTS["synchronous"],
+                pipe_kw=LC_PIPES["synchronous"] | dict(vocab_path=""), wrap=prepare)
+        sites = dict(hamming.hamming_match.site_launches)
+    t_run = time.perf_counter() - t0
+    ERRORS.check(what)
+    ts, Ts = check_positions(vio, MS_FRAMES, what)
+    print(f"{what}: session B, {MS_FRAMES} frames in {t_run:.1f} s (ms/frame p50 "
+          f"{np.percentile(np.asarray(wall) * 1e3, 50):.1f}), relocalisations "
+          f"{vio.n_relocalisations}, loop closures {vio.n_loop_closures}; fused match launches "
+          f"by site {sites} ({card})")
+    if vio.n_relocalisations < 1 or not vio.relocalised:
+        raise RuntimeError(f"{what}: session B was never relocalised")
+    for site in ("vocab", "reloc"):
+        if sites.get(site, 0) <= 0:
+            raise RuntimeError(f"{what}: the fused kernel was never launched from site {site!r}")
+
+    # the bootstrapped vocabulary against the plain trainer on the card
+    recs = vio.components[0]["records"].values()
+    packs = torch.cat([r["packed_d"][r["valid_d"]] for r in recs])
+    init = bow.init_indices(len(packs), vio.cfg.vocab_k)
+    with plain_match():
+        plain = bow.train_vocabulary_core(packs, init, iters=6)
+    if not torch.equal(vio.vocab, plain):
+        raise RuntimeError(f"{what}: the vocabulary trained on the kernel differs from the plain "
+                           "trainer's")
+    print(f"{what}: vocabulary of {vio.vocab.shape[0]} words bootstrapped from {len(packs)} "
+          "descriptors of session A on the kernel == plain trainer on the card, exact")
+
+    # one verification's match on the kernel against the plain version
+    args, kw, out = rec.calls[0]
+    with plain_match():
+        ref = hamming.match_packed_mutual(*args, **kw)
+    for name, g, r in zip(("idx", "dist", "ok"), out, ref):
+        if g.dtype != r.dtype or not torch.equal(g, r):
+            raise RuntimeError(f"{what}: the reloc match differs from the plain version ({name})")
+    print(f"{what}: reloc match of {args[0].shape[0]} x {args[2].shape[0]} descriptors == plain, "
+          f"exact ({len(rec.calls)} reloc matches in the run)")
+
+    # B's poses from its first relocalisation on, against A's estimate
+    first = next(i for i, inf in enumerate(infos) if inf["loop_closure"])
+    ta = np.array([s[0] for s in vio_a.states_log])
+    Ta = np.stack([s[1] for s in vio_a.states_log])
+    if not np.array_equal(ta[first:MS_FRAMES], ts[first:]):
+        raise RuntimeError(f"{what}: sessions A and B logged different frame times")
+    d_pos = np.linalg.norm(Ts[first:, :3] - Ta[first:MS_FRAMES, :3], axis=1)
+    d_rot = rot_err(Ts[first:, 3:7], Ta[first:MS_FRAMES, 3:7])
+    print(f"{what}: first relocalised at frame {first}; B against A over frames {first}-"
+          f"{MS_FRAMES - 1}: position gap max {d_pos.max():.4f} m, rotation gap max "
+          f"{d_rot.max():.4f} rad (limits {MS_POS_TOL_M} m, {MS_ROT_TOL_RAD} rad); before: "
+          f"{np.linalg.norm(offset[:3]):.2f} m, {MS_OFFSET[1]} rad")
+    if not (d_pos.max() <= MS_POS_TOL_M and d_rot.max() <= MS_ROT_TOL_RAD):
+        raise RuntimeError(f"{what}: relocalised poses off session A's estimate")
+    return sites
 
 
 def drifted_circle(K, rng, radius=5.0):
@@ -1029,7 +1207,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB allocated (the library "
           "yardstick's cuBLAS workspace), which the phases' peaks below include")
 
-    # ---- phases 4 to 9: the main paths, then the PCG pose graph; the CPU
+    # ---- phases 4 to 10: the main paths, then the PCG pose graph; the CPU
     # halves of their card-vs-CPU checks run meanwhile in a process of
     # their own (one core of the host; the card's phases are host-bound on
     # one other)
@@ -1038,7 +1216,14 @@ def main() -> int:
         cpu_flagship = pool.submit(flagship_cpu_positions)
         cpu_solves = pool.submit(pcg_cpu_solves)
         t0 = time.perf_counter()
-        on_match, on_matrix = vio_phase(dev, card, cpu_positions)
+        match_sites = {}
+
+        def add_sites(sites):
+            for k, n in sites.items():
+                match_sites[k] = match_sites.get(k, 0) + n
+
+        sites, on_matrix = vio_phase(dev, card, cpu_positions)
+        add_sites(sites)
         print(f"VIO phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         seq = render(max(LC_FRAMES.values()), **SMALL_CIRCUIT)
@@ -1046,18 +1231,25 @@ def main() -> int:
               f"{SMALL_CIRCUIT['radius']} m: {time.perf_counter() - t0:.1f} s")
         for mode in LC_PIPES:
             t0 = time.perf_counter()
-            on_match += loop_closure_phase(dev, card, mode, seq, cpu_flagship)
+            sites, vio = loop_closure_phase(dev, card, mode, seq, cpu_flagship)
+            add_sites(sites)
             print(f"{mode} loop-closure phase: {time.perf_counter() - t0:.1f} s")
+            if mode == "synchronous":
+                t0 = time.perf_counter()
+                add_sites(multisession_phase(dev, card, vio, seq))
+                print(f"multi-session phase: {time.perf_counter() - t0:.1f} s")
+            del vio
         t0 = time.perf_counter()
         pcg_phase(dev, card, cpu_solves)
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
-    # times at 704x1024, the map matching's shape; launches over phases 4-8
+    # times at 704x1024, the map matching's shape; launches over phases 4-9
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",
          "replaces": "okvis2x_tpu/ops/hamming_pallas.py:67",
-         "launches": on_match, **entries["match"]},
+         "launches": sum(match_sites.values()), "site_launches": match_sites,
+         **entries["match"]},
         {"name": "hamming_matrix_packed", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming.cu",
          "replaces": "okvis2x_tpu/ops/hamming_pallas.py:67",

@@ -10,8 +10,9 @@ What runs how:
     ``ops/hamming.py``): ``csrc/hamming_match.cu`` reduces the masked
     distances to best matches without writing the matrix and serves the
     per-frame association (``frontend/matcher.py``), the vocabulary descent
-    (``frontend/bow.py``) and the loop matching; ``csrc/hamming.cu`` gives
-    the distance matrix to the callers that want it;
+    and training (``frontend/bow.py``), the loop matching and the
+    verification of a relocalisation; ``csrc/hamming.cu`` gives the distance
+    matrix to the callers that want it;
   * detection, description, triangulation, the Gauss-Newton/LM solver with
     Schur elimination, IMU factors and marginalisation are PyTorch code;
   * graph bookkeeping, IMU prediction and link preintegration are numpy on
@@ -26,7 +27,7 @@ Layer map (as in okvis2x_tpu):
   pipeline/  per-frame orchestration        io/        synthetic data, ATE
   parallel/  matrix-free pose-graph PCG     utils/     timing, the
   convert.py state from the JAX package                forward-AD lock
-             (numpy)
+             (numpy)                        graph/component.py  map files
 
 Ported so far: the stereo-inertial VIO path (``pipeline.vio.VioPipeline``)
 with pose refinement and the pipelined solve or the deferred fused frontend
@@ -35,9 +36,11 @@ loop closure (BoW, RANSAC, the pose graph) synchronous or asynchronous (the
 place-recognition worker, the background optimisation of
 ``graph/fullgraph.py``: the complete factor graph or the pose graph), the
 single-device matrix-free pose-graph solver of ``parallel/dist_posegraph.py``
-and the final BA.  Online vocabulary training, relocalisation, semantic
-weighting, GNSS, depth, LiDAR, submaps, the learned models, ROS2 and the
-multi-device ``parallel/`` solvers are not ported yet.
+and the final BA; a vocabulary trained online when there is no vocabulary
+file, and multi-session maps (save and load a session, relocalise against
+it, export the map).  Semantic weighting, GNSS, depth, LiDAR, submaps, the
+learned models, ROS2 and the multi-device ``parallel/`` solvers are not
+ported yet.
 
 The entry points run on the first CUDA device unless the caller names
 another device (``device="cpu"`` for the CPU).

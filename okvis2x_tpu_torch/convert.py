@@ -113,6 +113,12 @@ def pack_pm1(pm1) -> np.ndarray:
     return np.ascontiguousarray(words).view(np.uint32)[:, :, 0].view(np.int32)
 
 
+def flat_vocabulary(vocab, device=None) -> torch.Tensor:
+    """JAX flat vocabulary ((k, 384) ±1 bfloat16 rows, as
+    `train_vocabulary` returns it) -> the port's (k, 12) int32 words."""
+    return torch.from_numpy(pack_pm1(np.asarray(vocab, np.float32))).to(device)
+
+
 def hier_vocabulary(vocab, device=None) -> HierVocabulary:
     """JAX `HierVocabulary` (±1 bfloat16 rows) -> the port's packed words."""
     return HierVocabulary(torch.from_numpy(pack_pm1(vocab.branches)).to(device),
@@ -139,15 +145,14 @@ def estimator_state(src, dst: SlidingWindowEstimator) -> SlidingWindowEstimator:
     the converted config, cameras and extrinsics): window and archived
     frames and edges, live and archived observations and landmarks, both
     IMU buffers, the chained IMU links, the priors, the held loop-closure
-    frames and the correction epoch.  Depth priors, GNSS and loaded map
-    components are not ported and must be absent."""
+    frames and the correction epoch; the frames and edges of loaded map
+    components (negative frame ids) come along with the archive.  Depth
+    priors and GNSS are not ported and must be absent."""
     if np.any(np.asarray(src.obs_depth_sigma) > 0) or np.any(
             np.asarray(src.arch_obs_depth_sigma) > 0):
         raise NotImplementedError("depth priors are not ported yet")
     if src.gps_status != "Off":
         raise NotImplementedError("GNSS is not ported yet")
-    if any(f < 0 for f in src.archive_frames):
-        raise NotImplementedError("loaded map components are not ported yet")
     dst.frames = [_frame(f) for f in src.frames]
     dst.archive_frames = {int(k): _frame(f) for k, f in src.archive_frames.items()}
     dst.rel_edges = [_edge(e) for e in src.rel_edges]

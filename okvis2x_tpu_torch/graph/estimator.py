@@ -1396,6 +1396,57 @@ class SlidingWindowEstimator:
             if have[k]:
                 self.arch_lm[lid] = hp2[k]
 
+    # ------------------------------------------------------ multi-session
+    def rigid_transform(self, dT: np.ndarray, session_only: bool = True):
+        """Move the estimate rigidly by dT (a world-frame correction, left
+        multiplied): poses, velocities, landmarks and the prior.  With
+        `session_only` the frames of loaded components (fid < 0) stay put:
+        the first relocalisation aligns the running session onto a loaded
+        map so.  An optimisation in flight becomes stale."""
+        dT_n = np.asarray(dT, np.float64)
+        dR = se3np.quat_to_matrix(dT_n[3:7])
+        for f in list(self.frames) + list(self.archive_frames.values()):
+            if session_only and f.fid < 0:
+                continue
+            f.T_WS = se3np.se3_multiply(dT_n, f.T_WS)
+            if f.pre_hold_T is not None:
+                f.pre_hold_T = se3np.se3_multiply(dT_n, f.pre_hold_T)
+            f.sb = np.concatenate([dR @ f.sb[0:3], f.sb[3:9]])
+        if len(self.hp_W):
+            self.hp_W = se3np.se3_apply_homogeneous(dT_n, self.hp_W)
+        for lid in list(self.arch_lm.keys()):
+            self.arch_lm[lid] = se3np.se3_apply_homogeneous(dT_n, self.arch_lm[lid])
+        if self.prior_T is not None:
+            self.prior_T = se3np.se3_multiply(dT_n, self.prior_T)
+        self.correction_epoch += 1
+
+    def import_component_frames(self, frame_fids, frame_ts, frame_T_WS, edges,
+                                fixed: bool = True) -> Dict[int, int]:
+        """Add a loaded session's keyframes and pose-graph edges as archived
+        nodes (fixed by default) with negative frame ids, below those of any
+        component loaded before (≙ Frontend::loadComponent keeping components
+        apart from the live graph, okvis_frontend/src/Frontend.cpp:163-201).
+        Their timestamps are shifted to precede every session state, so the
+        time order of the pose graph holds.  Returns the old -> new fid map."""
+        existing_neg = [f for f in self.archive_frames if f < 0]
+        base = (min(existing_neg) if existing_neg else 0) - 1
+        fid_map = {int(old): base - k for k, old in enumerate(frame_fids)}
+        ts = np.asarray(frame_ts, np.float64)
+        session_t0 = min([f.timestamp for f in self.frames]
+                         + [f.timestamp for f in self.archive_frames.values()] + [0.0])
+        shift = session_t0 - float(ts.max()) - 1e6
+        for old, t, T in zip(frame_fids, ts, frame_T_WS):
+            fid = fid_map[int(old)]
+            self.archive_frames[fid] = FrameState(
+                fid=fid, timestamp=float(t) + shift, T_WS=np.asarray(T, np.float64).copy(),
+                sb=np.zeros(9), is_keyframe=True, pose_fixed=fixed, pose_graph_frame=True)
+        for e in edges:
+            self.archive_edges.append(dict(
+                i=fid_map[int(e["i"])], j=fid_map[int(e["j"])],
+                T_ij=np.asarray(e["T_ij"], np.float64),
+                sqrt_info=np.asarray(e["sqrt_info"], np.float64)))
+        return fid_map
+
     def close_loop(self, fid_cur: int, fid_cand: int, T_cand_cur: np.ndarray,
                    sqrt_info: np.ndarray, iterations: int = 10) -> bool:
         """Accepted loop closure, synchronous path: persist the loop edge,

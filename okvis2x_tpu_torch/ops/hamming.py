@@ -18,7 +18,8 @@ sources are compiled with ``nvcc`` for ``sm_90a`` on first use into one
 library under ``build/okvis2x_tpu_torch/`` at the root of the checkout and
 loaded with ctypes.  Each wrapper counts its kernel launches in ``.launches``
 and by calling site in ``.site_launches`` ("assoc": per-frame association,
-"bow": vocabulary descent, "lc_match": loop-closure matching).
+"bow": vocabulary descent, "lc_match": loop-closure matching, "vocab":
+vocabulary training, "reloc": the verification of a relocalisation).
 
 Both are thread-safe: the place-recognition worker launches the fused kernel
 from a thread of its own, so the first build runs under a lock and the
@@ -350,13 +351,15 @@ def best_matches_packed(packed_q, packed_d, max_dist=60):
     return idx[:, 0].to(torch.int32), d, d <= max_dist
 
 
-def match_packed_mutual(packed_q, valid_q, packed_d, valid_d, max_dist: float = 60.0):
+def match_packed_mutual(packed_q, valid_q, packed_d, valid_d, max_dist: float = 60.0,
+                        site: str = "assoc"):
     """Mutual best matching straight from packed descriptors; invalid rows
     and columns are masked to 385 (one above any real distance).  Returns
-    (idx_d (NQ,) int32, dist (NQ,) float32, valid (NQ,) bool)."""
+    (idx_d (NQ,) int32, dist (NQ,) float32, valid (NQ,) bool).  `site`
+    names the caller in the launch counts."""
     nq = packed_q.shape[0]
     d, idx, back = hamming_match(packed_q, valid_q, packed_d, valid_d,
-                                 fill_invalid=DESC_BITS + 1, want_cols=True)
+                                 fill_invalid=DESC_BITS + 1, want_cols=True, site=site)
     idx, d = idx[:, 0], d[:, 0].to(torch.float32)
     mutual = back[idx] == torch.arange(nq, device=idx.device)
     return idx.to(torch.int32), d, valid_q & mutual & (d <= max_dist)

@@ -51,9 +51,20 @@ After the last frame, `finish()` (drain the cycles in flight, collect the
 pending solve, drain the worker, join the background optimisation) and
 `est.final_ba()` give the refined trajectory (`est.full_trajectory()`).
 
-Online vocabulary training, relocalisation against loaded maps, semantic
-weighting (also inside the fused frontend) and depth input are not part of
-the port yet; enabling them raises ``NotImplementedError``.
+Without a vocabulary file (`vocab_path=""`, or a path that does not exist)
+a flat vocabulary is trained online once `vocab_min_desc` keyframe
+descriptors are recorded (`_maybe_train_vocab`); place recognition then
+stays on the frame thread.  Multi-session: `save_component` writes the
+session, `load_component` brings a saved one in as fixed archived nodes
+with negative frame ids and a BoW database of its own, and each keyframe
+is first queried against the loaded components (`_attempt_relocalisation`:
+the first verified hit moves the session rigidly onto the map frame, then
+a loop edge to the component's keyframe); components also keep place
+recognition on the frame thread.  `save_map` exports the pose graph and
+map in the reference's text layout.
+
+Semantic weighting (also inside the fused frontend) and depth input are not
+part of the port yet; enabling them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ from okvis2x_tpu_torch.api import TrackingQuality
 from okvis2x_tpu_torch.cameras import pinhole, pinhole_np
 from okvis2x_tpu_torch.core import se3, se3np
 from okvis2x_tpu_torch.frontend import bow, descriptor, detector, matcher, ransac, triangulation
+from okvis2x_tpu_torch.graph import component
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, SlidingWindowEstimator
 from okvis2x_tpu_torch.graph.fullgraph import FullGraphOptimizer
 from okvis2x_tpu_torch.ops import hamming
@@ -101,12 +113,16 @@ class PipelineConfig:
     quality_lost: float = 0.01
     quality_marginal: float = 0.3
     quality_grid: int = 8
-    # loop closure: the shipped vocabulary when vocab_path is None;
+    # loop closure: the shipped vocabulary when vocab_path is None; with
+    # vocab_path "" or a missing file a flat vocabulary of vocab_k words is
+    # trained online once vocab_min_desc keyframe descriptors are recorded;
     # candidates are the top BoW retrievals (a third one only above p_dbow
     # or p_prominence x the retrieval mean), verified by RANSAC with
     # loop_min_inliers, accepted within drift_percentage of the path since
     # the candidate, and at most one per loop_cooldown_m of path
     do_loop_closures: bool = True
+    vocab_k: int = 256
+    vocab_min_desc: int = 4000
     vocab_path: Optional[str] = None
     p_dbow: float = 0.4
     p_prominence: float = 1.15
@@ -143,8 +159,6 @@ class PipelineConfig:
         if self.segmentation != "off":
             raise NotImplementedError("semantic keypoint weighting is not ported yet "
                                       "(neither in the synchronous nor in the fused frontend)")
-        if self.do_loop_closures and self.vocab_path == "":
-            raise NotImplementedError("online vocabulary training is not ported yet")
 
 
 # stereo / motion-stereo initialisations accepted per frame (the first
@@ -223,16 +237,22 @@ class VioPipeline:
         self.n_loop_closures = 0
         self.n_landmarks_merged = 0
         self._lc_last_path = -1e9
+        # the vocabulary: the file when there is one, else trained online
+        # (`_vocab_pretrained` False keeps place recognition synchronous)
         self.vocab = None
         self.bow_db = None
-        if cfg.do_loop_closures:
+        self._vocab_pretrained = False
+        if cfg.do_loop_closures and cfg.vocab_path != "":
             path = cfg.vocab_path or bow.DEFAULT_VOCAB
-            if not os.path.exists(path):
-                raise NotImplementedError(
-                    f"vocabulary {path} not found; online vocabulary training is "
-                    "not ported yet")
-            self.vocab = bow.HierVocabulary.load(path, device=self.device)
-            self.bow_db = bow.BowDatabase(k=self.vocab.n_words)
+            if os.path.exists(path):
+                self.vocab = bow.HierVocabulary.load(path, device=self.device)
+                self.bow_db = bow.BowDatabase(k=self.vocab.n_words)
+                self._vocab_pretrained = True
+            else:
+                logging.warning(
+                    "BoW vocabulary %s not found — falling back to online "
+                    "flat-vocab training (loop-closure recall degrades "
+                    "until ~%d descriptors are seen)", path, cfg.vocab_min_desc)
         # asynchronous place recognition: the worker takes keyframes from
         # _lc_queue and puts proposals on _lc_results; _lc_active is held
         # while it runs an item, so the frame thread never moves record
@@ -251,6 +271,11 @@ class VioPipeline:
             self._lc_thread = threading.Thread(target=self._lc_worker_loop,
                                                name="place-recognition", daemon=True)
             self._lc_thread.start()
+        # multi-session: loaded components (each with its own BoW database,
+        # ≙ Frontend::componentDBows_) and the relocalisation status
+        self.components: List[dict] = []
+        self.relocalised = False
+        self.n_relocalisations = 0
         self.full_graph = FullGraphOptimizer(iterations=cfg.full_graph_iterations,
                                              dtype=dtype,
                                              full_ba_threshold=cfg.full_ba_threshold)
@@ -805,8 +830,35 @@ class VioPipeline:
         rec["words"] = words
         return words
 
+    def _use_async_pr(self) -> bool:
+        """Place recognition on the worker: only with the worker running
+        (until finish() stops it), a vocabulary from a file (a vocabulary
+        trained mid-session had its database filled on the frame thread)
+        and no loaded component (relocalisation mutates the estimator)."""
+        return (self._lc_thread is not None and self.vocab is not None
+                and self._vocab_pretrained and not self.components)
+
+    def _maybe_train_vocab(self):
+        """Train the flat vocabulary once the keyframe records hold
+        `vocab_min_desc` valid descriptors (their valid rows in record
+        order, vocab_k words, 6 iterations), then index every record."""
+        if self.vocab is not None:
+            return
+        total = sum(int(r["valid"].sum()) for r in self.kf_records.values())
+        if total < self.cfg.vocab_min_desc:
+            return
+        packs = torch.cat([r["packed_d"][r["valid_d"]] for r in self.kf_records.values()])
+        self.vocab = bow.train_vocabulary(packs, k=self.cfg.vocab_k, iters=6)
+        self.bow_db = bow.BowDatabase(k=bow.n_words(self.vocab))
+        for f, r in self.kf_records.items():
+            self.bow_db.add(f, self._keyframe_words(r), r["valid"])
+
     def _attempt_loop_closure(self, fid: int, t: float) -> bool:
-        """Propose (BoW query + RANSAC) and accept (graph surgery) in line."""
+        """Propose (BoW query + RANSAC, or a relocalisation against a loaded
+        component) and accept (graph surgery) in line."""
+        self._maybe_train_vocab()
+        if self.vocab is None or fid not in self.kf_records:
+            return False
         rec = self.kf_records[fid]
         exclude = {f for f, r in self.kf_records.items() if t - r["t"] < self.cfg.loop_min_gap_s}
         try:
@@ -814,21 +866,29 @@ class VioPipeline:
         except KeyError:
             cur_p = rec["T_WS"][:3]
         prop = self._lc_propose(fid, rec, exclude, cur_p)
+        if prop == "relocalised":
+            return True
         return prop is not None and self._lc_accept(prop)
 
-    def _lc_propose(self, fid: int, rec: dict, exclude: set, cur_p):
+    def _lc_propose(self, fid: int, rec: dict, exclude: set, cur_p, worker: bool = False):
         """Place-recognition proposal: words, BoW query and database add,
         candidate policy, RANSAC verification.  BoW proposes, geometry
         decides: the top two retrievals are always verified, a third only
         when its score clears p_dbow or stands out from the retrieval bulk.
-        It touches no estimator state (`cur_p`, the position when the
-        keyframe was queued, only sets the RANSAC depth prior), so it runs
-        on the recognition worker as well.  Returns a proposal dict or
+        Apart from a relocalisation against a loaded component, which only
+        the frame thread tries, it touches no estimator state (`cur_p`, the
+        position when the keyframe was queued, only sets the RANSAC depth
+        prior), so it runs on the recognition worker as well.  Returns a
+        proposal dict, "relocalised" (a relocalisation was applied) or
         None."""
         cfg = self.cfg
         words = self._keyframe_words(rec)
         res = self.bow_db.query(words, rec["valid"], exclude=exclude, top=8)
         self.bow_db.add(fid, words, rec["valid"])
+        # a worker item queued before load_component() must not move the
+        # estimator off the frame thread
+        if not worker and self.components and self._attempt_relocalisation(fid, words, rec):
+            return "relocalised"
         if not res:
             return None
         bulk = float(np.mean([s for _, s in res]))
@@ -912,7 +972,7 @@ class VioPipeline:
                             self._lc_stream.wait_event(rec["ready"])
                         if item["query"]:
                             prop = self._lc_propose(item["fid"], rec, item["exclude"],
-                                                    item["cur_p"])
+                                                    item["cur_p"], worker=True)
                         else:  # backlog: index the keyframe, skip the verification
                             self.bow_db.add(item["fid"], self._keyframe_words(rec),
                                             rec["valid"])
@@ -1232,7 +1292,7 @@ class VioPipeline:
                 self.states_log[log_idx] = (t, f.T_WS.copy())
 
         looped = False
-        use_async_pr = self._lc_thread is not None  # until finish() stops the worker
+        use_async_pr = self._use_async_pr()
         if use_async_pr:
             # proposals land a few frames after their keyframe was queued
             with timing.Timer("2.8 LoopClosure"):
@@ -1251,7 +1311,7 @@ class VioPipeline:
                         self._lc_enqueue(fid, t, index_only=in_cooldown)
                     elif not in_cooldown:
                         looped = self._attempt_loop_closure(fid, t) or looped
-                    else:
+                    elif self.vocab is not None:  # index without querying
                         rec = self.kf_records[fid]
                         self.bow_db.add(fid, self._keyframe_words(rec), rec["valid"])
         if looped:
@@ -1444,8 +1504,9 @@ class VioPipeline:
             kf_t = self._kf_lc_todo.pop(fid, None)
             if kf_t is not None and self.cfg.do_loop_closures:
                 in_cooldown = self.path_length - self._lc_last_path < self.cfg.loop_cooldown_m
+                use_async_pr = self._use_async_pr()
                 self._record_keyframe(fid, kf_t, frame_data)
-                if self._lc_thread is not None:
+                if use_async_pr:
                     self._lc_enqueue(fid, kf_t, index_only=in_cooldown)
                 elif not in_cooldown and self._attempt_loop_closure(fid, kf_t):
                     self.est.optimise()
@@ -1590,8 +1651,155 @@ class VioPipeline:
             self.est.apply_pending_edges(job, job["out"].cpu().numpy())
         self.est.pending_edge_jobs = []
 
+    # ------------------------------------------------------ multi-session
+    def _geometric_verify(self, fid: int, rec: dict, cand: dict, cur_p=None):
+        """Verify one candidate record (a loaded component's keyframe): per
+        camera that both records have, mutual matching on the fused match
+        kernel (site "reloc"), then ONE non-central RANSAC of the rig's rays
+        against the candidate's landmark snapshot (≙ verifyRecognisedPlace,
+        Frontend.cpp:258-604).  Hypotheses are drawn from a torch.Generator
+        seeded with the frame id.  Returns (T_WS in the candidate's world
+        frame, inliers, inlier (cam, cur kp, cand kp) pairs) or None."""
+        cfg = self.cfg
+        cam_keys = [(0, "")] + ([(1, "1")] if "packed1" in rec and "packed1" in cand else [])
+        rays_l, orig_l, pts_l, pair_l = [], [], [], []
+        for c, sfx in cam_keys:
+            mi, _md, mok = hamming.match_packed_mutual(
+                rec[f"packed{sfx}_d"], rec[f"valid{sfx}_d"], cand[f"packed{sfx}_d"],
+                cand[f"valid{sfx}_d"], max_dist=float(cfg.matching_threshold), site="reloc")
+            mv, mi = mok.cpu().numpy(), mi.cpu().numpy().astype(np.int64)
+            lm = cand[f"lm_pos{sfx}"]
+            keep = np.nonzero(mv & np.isfinite(lm[:, 0])[mi])[0]
+            if len(keep) == 0:
+                continue
+            rays_C, ok = pinhole_np.back_project_unit(self.np_cameras[c], rec[f"uv{sfx}"][keep])
+            keep, rays_C = keep[ok], rays_C[ok]
+            rays_l.append(rays_C @ se3np.quat_to_matrix(self.T_SC[c][3:7]).T)
+            orig_l.append(np.tile(self.T_SC[c][:3], (len(keep), 1)))
+            pts_l.append(lm[mi[keep]])
+            pair_l.extend((c, int(kc), int(kd)) for kc, kd in zip(keep, mi[keep]))
+        if len(pair_l) < cfg.loop_min_inliers:
+            return None
+        pts = np.concatenate(pts_l)
+        if cur_p is None:
+            cur_p = self.est.get_state(fid).T_WS[:3]
+        depth = np.linalg.norm(pts - cur_p, axis=-1)
+        # the JAX package's fixed capacity: the first `cap` rows, padded
+        cap = 2 * cfg.max_keypoints
+        n = min(len(pts), cap)
+        dev, dtype = self.device, self.est.cfg.dtype
+
+        def pad(a, fill=0.0):
+            out = np.full((cap,) + a.shape[1:], fill)
+            out[:n] = a[:n]
+            return torch.as_tensor(out, dtype=dtype, device=dev)
+
+        mask = torch.arange(cap, device=dev) < n
+        res = ransac.absolute_pose_noncentral(
+            pad(np.concatenate(rays_l)), pad(np.concatenate(orig_l)), pad(pts), mask,
+            pad(depth, 1.0), n_hyp=512, generator=torch.Generator().manual_seed(int(fid)))
+        n_inl = int(res.num_inliers)
+        if n_inl < cfg.loop_min_inliers:
+            return None
+        inl = res.inliers.cpu().numpy()[:n]
+        pairs = [pair_l[i] for i in np.nonzero(inl)[0]]
+        return res.T.cpu().numpy().astype(np.float64), n_inl, pairs
+
     def load_component(self, path: str, fixed: bool = True) -> bool:
-        raise NotImplementedError("multi-session relocalisation is not ported yet")
+        """Load a previous session's map for relocalisation
+        (≙ Frontend::loadComponent, okvis_frontend/src/Frontend.cpp:163-201):
+        its keyframes join the pose graph as (fixed) nodes with negative
+        frame ids and its keyframe records get a BoW database of their own.
+        Without a vocabulary one is trained on the component's descriptors
+        (at least 256 of them).  Returns False for a file without records
+        or too few descriptors."""
+        # components keep recognition on the frame thread: drop the queued
+        # worker items and wait out the one in flight
+        if self._lc_queue is not None:
+            while True:
+                try:
+                    self._lc_queue.get_nowait()
+                except queue.Empty:
+                    break
+            with self._lc_active:
+                pass
+        comp = component.load_component(path)
+        if "records" not in comp:
+            return False
+        fid_map = self.est.import_component_frames(
+            comp["frame_fids"], comp["frame_ts"], comp["frame_T_WS"], comp["edges"],
+            fixed=fixed)
+        dev = self.device
+        records = {}
+        for old, r in comp["records"].items():
+            if old in fid_map:
+                r["packed_d"] = torch.as_tensor(
+                    np.ascontiguousarray(r["packed"]).view(np.int32), device=dev)
+                r["valid_d"] = torch.as_tensor(r["valid"], device=dev)
+                records[fid_map[old]] = r
+        if self.vocab is None:
+            packs = torch.cat([r["packed_d"][r["valid_d"]] for r in records.values()])
+            if len(packs) < 256:
+                return False
+            self.vocab = bow.train_vocabulary(packs, k=self.cfg.vocab_k, iters=6)
+            self.bow_db = bow.BowDatabase(k=bow.n_words(self.vocab))
+        comp_db = bow.BowDatabase(k=bow.n_words(self.vocab))
+        for cfid, r in records.items():
+            comp_db.add(cfid, self._keyframe_words(r), r["valid"])
+        self.components.append(dict(db=comp_db, records=records))
+        return True
+
+    def _attempt_relocalisation(self, fid: int, words, rec) -> bool:
+        """Query the loaded components; on a geometrically verified hit,
+        align the session onto the map frame (the first hit moves the whole
+        session rigidly; later hits pass the drift gate of loop closures)
+        and add a pose-graph edge to the component's keyframe
+        (≙ Frontend.cpp:813-857 and the backend's loop-closure machinery)."""
+        cfg = self.cfg
+        for comp in self.components:
+            res = comp["db"].query(words, rec["valid"], top=3)
+            if not res or res[0][1] < cfg.p_dbow:
+                continue
+            cand_fid, _ = res[0]
+            ver = self._geometric_verify(fid, rec, comp["records"][cand_fid])
+            if ver is None:
+                continue
+            T_WS_est, n_inl, _ = ver
+            T_WS_cur = self.est.get_state(fid).T_WS
+            if self.relocalised:
+                correction = np.linalg.norm(T_WS_est[:3] - T_WS_cur[:3])
+                budget = cfg.drift_percentage / 100.0 * max(self.path_length, 0.5) + 0.2
+                if correction > budget:
+                    continue
+            else:
+                # the offset between sessions is unbounded
+                self.est.rigid_transform(
+                    se3np.se3_multiply(T_WS_est, se3np.se3_inverse(T_WS_cur)),
+                    session_only=True)
+                self.relocalised = True
+            T_WK = self.est.archive_frames[cand_fid].T_WS  # the map-frame pose
+            T_cand_cur = se3np.se3_multiply(se3np.se3_inverse(T_WK), T_WS_est)
+            sqrt_info = np.eye(6) * (10.0 * np.sqrt(n_inl))
+            if cfg.async_loop_closure:
+                if self.est.add_loop_edge(fid, cand_fid, T_cand_cur, sqrt_info):
+                    self.full_graph.dispatch(self.est)
+                    self.n_relocalisations += 1
+                    return True
+            elif self.est.close_loop(fid, cand_fid, T_cand_cur, sqrt_info):
+                self.n_relocalisations += 1
+                self._refresh_kf_poses()
+                return True
+        return False
+
+    def save_map(self, path: str) -> str:
+        """Export the long-term map and a .g2o pose graph
+        (≙ ViSlamBackend::saveMap); returns the .g2o path."""
+        return component.save_map(path, self.est, self.kf_records)
+
+    def save_component(self, path: str):
+        """Write this session for a later relocalisation
+        (≙ ViSlamBackend::saveComponent)."""
+        component.save_component(path, self.est, self.kf_records)
 
     def finish(self):
         """Dataset end: collect the pending window solve, consume the

@@ -31,7 +31,7 @@ from okvis2x_tpu_torch.cameras import pinhole
 from okvis2x_tpu_torch.frontend import ransac
 from okvis2x_tpu_torch.io import trajectory_io
 from okvis2x_tpu_torch.pipeline.vio import VioPipeline
-from test_torch_lc_slice import EST, cameras, jax_sample_indices, render
+from test_torch_lc_slice import EST, cameras, jax_sample_indices, pin_to_cores, render
 
 torch.set_num_threads(1)
 
@@ -88,9 +88,10 @@ def _run(pipe, seq):
 
 def jax_run():
     """The JAX pipeline's lockstep run, in a process of its own (a fresh
-    interpreter: the CPU platform and float64 are set here)."""
+    interpreter: the CPU platform and float64 are set here), on two cores."""
     import jax
 
+    pin_to_cores(1)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     queue.Queue = StepQueue

@@ -162,6 +162,40 @@ def test_cuda_vocabulary_words_match_cpu(cuda):
     assert (ref[~valid] == 0).all()
 
 
+def test_cuda_vocabulary_training_matches_cpu(cuda):
+    """Binary k-means on the card (one launch a iteration under the
+    "vocab" site) gives the CPU's centres; the flat vocabulary's words (one
+    "bow" launch) too."""
+    rng = np.random.default_rng(4)
+    packed = words(3000, rng)
+    packed[1000:2000] = packed[:1000]  # duplicated rows: ties and empty clusters
+    init = bow.init_indices(3000, 256, 0)
+    ref = bow.train_vocabulary_core(packed, init, iters=6)
+    n0 = hamming.hamming_match.site_launches.get("vocab", 0)
+    got = bow.train_vocabulary_core(packed.to(cuda), init, iters=6)
+    assert hamming.hamming_match.site_launches["vocab"] == n0 + 6
+    assert torch.equal(got.cpu(), ref)
+    b0 = hamming.hamming_match.site_launches.get("bow", 0)
+    w = bow.assign_packed(packed.to(cuda), None, got)
+    assert hamming.hamming_match.site_launches["bow"] == b0 + 1
+    assert torch.equal(w.cpu(), bow.assign_packed(packed, None, ref))
+
+
+def test_cuda_reloc_match_counts_its_site(cuda):
+    """The relocalisation's mutual match launches the fused kernel once,
+    counted under "reloc", and equals the CPU's."""
+    rng = np.random.default_rng(5)
+    q, d = tied_words(704, 704, rng)
+    vq, vd = (torch.from_numpy(rng.random(704) > 0.2) for _ in range(2))
+    ref = hamming.match_packed_mutual(q, vq, d, vd, max_dist=60.0)
+    n0 = hamming.hamming_match.site_launches.get("reloc", 0)
+    got = hamming.match_packed_mutual(q.to(cuda), vq.to(cuda), d.to(cuda), vd.to(cuda),
+                                      max_dist=60.0, site="reloc")
+    assert hamming.hamming_match.site_launches["reloc"] == n0 + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
 def test_no_device_means_cuda_or_an_error():
     """`VioPipeline` and `SlidingWindowEstimator` built without a device run
     on the first CUDA device; where there is none they raise and do not

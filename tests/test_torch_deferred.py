@@ -38,6 +38,15 @@ PIPE = dict(max_keypoints=256, octaves=1, harris_threshold=1e-6, keyframe_match_
             do_loop_closures=False, deferred_frontend=True)
 DEPTHS = {"depth1": dict(pipeline_depth=1), "depth2": dict(pipeline_depth=2,
                                                            pipeline_ramp_frames=3)}
+# logged positions against the JAX package's (measured: 6.2e-5 m at depth 1,
+# 6.4e-7 m at depth 2).  The landmark inputs of the two packages' solves
+# differ in the 7th digit (the fused frontend triangulates in float32: the
+# stereo points agree to 1e-6 relative), and at depth 1 the 5-iteration
+# solve of frame 6 turns relative 1e-7 of its landmarks into 6e-5 m of its
+# pose (test_depth1_gap_is_solve_sensitivity); the bounds are 3x and 15x the
+# measured gaps
+POS_TOL = {"depth1": 2e-4, "depth2": 1e-5}
+SENSITIVE_FID = 6
 
 
 def cameras(seq, mod):
@@ -90,6 +99,26 @@ def _run(pipe, seq):
 @pytest.fixture(scope="module")
 def seq():
     return synthetic.render_sequence(duration=1.15, frame_rate=10.0, width=320, height=240)
+
+
+@pytest.fixture(scope="module")
+def port_runs(seq):
+    """Both depths on the port; the depth-1 run keeps the handles of its
+    window solves by frame id."""
+    out = {}
+    for name, kw in DEPTHS.items():
+        pipe = port_pipeline(seq, **kw)
+        handles = {}
+        collect = pipe.est.optimise_gated_collect
+
+        def keep(h, handles=handles, collect=collect):
+            handles[h["fid"]] = h
+            return collect(h)
+
+        pipe.est.optimise_gated_collect = keep
+        infos, log = _run(pipe, seq)
+        out[name] = dict(infos=infos, log=log, handles=handles, pipe=pipe)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -226,20 +255,48 @@ def test_deferred_edge_jobs_match_jax(jax_runs):
 
 
 @pytest.mark.parametrize("depth", sorted(DEPTHS))
-def test_deferred_pipeline_matches_jax(seq, jax_runs, depth):
+def test_deferred_pipeline_matches_jax(seq, jax_runs, port_runs, depth):
     """Both deferred pipelines on the same frames: the logged positions
     (the IMU predictions corrected by their solves) and the reported ones
-    within 1 mm, the association counts equal in every frame, the keyframe
-    decisions reported one call late (`keyframe_fid`) and the tracking
-    quality equal: tighter than test_pipeline_matches_jax holds the
-    synchronous path (measured: 6.2e-5 m at depth 1, 6.4e-7 m at depth 2)."""
+    within POS_TOL, the association counts equal in every frame, the
+    keyframe decisions reported one call late (`keyframe_fid`) and the
+    tracking quality equal: tighter than test_pipeline_matches_jax holds
+    the synchronous path."""
     ref, ref_log = jax_runs[depth]["infos"], jax_runs[depth]["log"]
-    got, got_log = _run(port_pipeline(seq, **DEPTHS[depth]), seq)
+    got, got_log = port_runs[depth]["infos"], port_runs[depth]["log"]
     assert len(got) == len(ref) == N_FRAMES
     gap = float(np.abs(got_log - ref_log).max())
-    assert gap < 1e-3, gap
-    assert max(float(np.abs(a["T"] - b["T"]).max()) for a, b in zip(got, ref)) < 1e-3
+    assert gap < POS_TOL[depth], gap
+    assert max(float(np.abs(a["T"] - b["T"]).max()) for a, b in zip(got, ref)) < POS_TOL[depth]
     assert [a["counts"].tolist() for a in got] == [b["counts"].tolist() for b in ref]
     assert [(a["kf"], a["quality"]) for a in got] == [(b["kf"], b["quality"]) for b in ref]
     assert sum(int(b["counts"][1]) for b in ref) > 50  # the run triangulated landmarks
     assert sum(int(b["counts"][2]) for b in ref) > 0  # and ran motion stereo
+
+
+def test_depth1_gap_is_solve_sensitivity(port_runs):
+    """Where the depth-1 gap comes from: the port's window solve of frame
+    SENSITIVE_FID, rerun with its landmarks scaled by 1 + 1e-7 N(0, 1) (the
+    size of the two packages' input differences), moves the frame's
+    position by more than 1e-5 m (measured 6.0e-5 to 8.1e-5), where the
+    solve of the frame before moves by less than 1e-5 (measured
+    2.1e-7 to 1.2e-6)."""
+    from okvis2x_tpu_torch.solver import gauss_newton as gn
+
+    est = port_runs["depth1"]["pipe"].est
+    handles = port_runs["depth1"]["handles"]
+    rng = np.random.default_rng(0)
+    moved = {}
+    for fid in (SENSITIVE_FID - 1, SENSITIVE_FID):
+        h = handles[fid]
+        p, slot = h["p"], h["fid2slot"][fid]
+        cfg = est._solver_config(h["iters"])
+        base = gn.optimize(p, est.cams, cfg)[0].T_WS[slot, :3]
+        gaps = []
+        for _ in range(2):
+            s = torch.from_numpy(1 + 1e-7 * rng.standard_normal(p.hp_W.shape[0]))[:, None]
+            hp = torch.cat([p.hp_W[:, :3] * s, p.hp_W[:, 3:]], 1)
+            T = gn.optimize(p._replace(hp_W=hp), est.cams, cfg)[0].T_WS[slot, :3]
+            gaps.append(float((T - base).abs().max()))
+        moved[fid] = gaps
+    assert max(moved[SENSITIVE_FID - 1]) < 1e-5 < min(moved[SENSITIVE_FID]), moved

@@ -29,7 +29,7 @@ from okvis2x_tpu_torch.io import trajectory_io
 from okvis2x_tpu_torch.pipeline.vio import VioPipeline
 from test_torch_async_slice import StepQueue
 from test_torch_deferred import drain_waiting
-from test_torch_lc_slice import EST, cameras, jax_sample_indices, render
+from test_torch_lc_slice import EST, cameras, jax_sample_indices, pin_to_cores, render
 
 torch.set_num_threads(1)
 
@@ -73,9 +73,11 @@ def _run(pipe, seq):
 
 
 def jax_run():
-    """The JAX pipeline's lockstep run, in a process of its own."""
+    """The JAX pipeline's lockstep run, in a process of its own, on two
+    cores."""
     import jax
 
+    pin_to_cores(2)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     queue.Queue = StepQueue
@@ -111,10 +113,13 @@ def test_flagship_lockstep_closures(runs):
 
 
 def test_flagship_lockstep_frames(runs):
-    """Every frame's reported keyframe and tracking quality equal; the
-    association counts equal in 90% of the frames and within 10%
-    elsewhere (test_pipeline_matches_jax: 75%); logged positions within
-    1 cm."""
+    """Every frame's reported keyframe, tracking quality and association
+    counts equal, and the logged positions within 1e-4 m (measured
+    4.8e-8 m; an unconverged window solve can turn relative 1e-7 of its
+    inputs into 6e-5 m, test_torch_deferred.py).  Over these 64 frames
+    every frame's counts were equal, in this fixture and with the JAX
+    reference run in the test process; over 67 the last one differed by
+    one map match."""
     got, ref = runs
     assert len(got["infos"]) == len(ref["infos"])
     assert [i["kf"] for i in got["infos"]] == [i["kf"] for i in ref["infos"]]
@@ -122,10 +127,9 @@ def test_flagship_lockstep_frames(runs):
     a = np.array([i["counts"] for i in got["infos"]])
     b = np.array([i["counts"] for i in ref["infos"]])
     same = (a == b).all(axis=1)
-    assert same.mean() >= 0.9, np.nonzero(~same)[0]
-    assert (np.abs(a - b) <= np.ceil(0.1 * b)).all(), (a[~same], b[~same])
+    assert same.all(), (np.nonzero(~same)[0], a[~same], b[~same])
     gap = float(np.abs(got["positions"] - ref["positions"]).max())
-    assert gap < 0.01, gap
+    assert gap < 1e-4, gap
 
 
 def test_flagship_lockstep_ate(runs):

@@ -10,6 +10,7 @@ the JAX package's `_sample_indices` under the keys the JAX pipeline uses
 hypotheses, and the comparison isolates everything else on the path."""
 
 import multiprocessing
+import os
 from concurrent.futures import ProcessPoolExecutor
 
 import jax
@@ -64,6 +65,21 @@ def jax_sample_indices(generator, n_hyp, sample_size, n, device=None):
     return torch.as_tensor(np.asarray(idx, np.int64), device=device)
 
 
+def pin_to_cores(slot: int, n: int = 2):
+    """Run this process, every thread it has and every thread it starts
+    later, on `n` cores of its own (`slot` picks which: the last n, the n
+    before, ...).  The spawned JAX reference runs XLA's CPU thread pool at
+    the width of its affinity, and its idle threads spin: alone on an
+    8-core host this file's reference took 567 s of CPU time in 143 s at
+    the full width, and 268 s in 156 s on 2 cores, with the same closures
+    and ATEs to 1e-10; beside the suite's workers the spinning took their
+    cores.  Call it before JAX's first computation."""
+    cores = sorted(os.sched_getaffinity(0))
+    pick = set(cores[-n * (slot + 1):][:n]) or set(cores)
+    for tid in os.listdir("/proc/self/task"):
+        os.sched_setaffinity(int(tid), pick)
+
+
 def _run(pipe, seq):
     closures = []
     for kind, data in seq.events():
@@ -96,7 +112,8 @@ def cameras(seq, pinhole_module):
 def jax_run():
     """The JAX pipeline's run, in a process of its own (a fresh interpreter:
     the CPU platform and float64 are set here, as tests/conftest.py sets
-    them for the test process)."""
+    them for the test process), on two cores."""
+    pin_to_cores(0)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     seq = render()

@@ -300,12 +300,12 @@ def test_lc_match_matches_jax():
 
 # ------------------------------------------------------- what is not ported
 @pytest.mark.parametrize("unported", [
-    dict(vocab_path=""), dict(segmentation="heuristic"),
-    dict(deferred_frontend=True, segmentation="net"), "load_component",
+    "do_extrinsics", dict(segmentation="heuristic"),
+    dict(deferred_frontend=True, segmentation="net"), "depth_input",
 ])
 def test_unported_loop_closure_features_raise(unported):
-    """Online vocabulary training, semantic keypoint weighting (also inside
-    the deferred fused frontend) and relocalisation raise instead of running
+    """Semantic keypoint weighting (also inside the deferred fused
+    frontend), online extrinsics and depth input raise instead of running
     something else."""
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig as TPipelineConfig
 
@@ -316,6 +316,10 @@ def test_unported_loop_closure_features_raise(unported):
     with pytest.raises(NotImplementedError):
         if isinstance(unported, dict):
             VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
+        elif unported == "do_extrinsics":
+            VioPipeline([cam], T_SC, convert.estimator_config(EstimatorConfig(do_extrinsics=True)),
+                        TPipelineConfig(**sync), device="cpu")
         else:
             pipe = VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**sync), device="cpu")
-            pipe.load_component("map.npz")
+            img = np.zeros((cam.height, cam.width), np.uint8)
+            pipe.process_frame(0.0, [img], depth_images=[img.astype(np.float32)])

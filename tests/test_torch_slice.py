@@ -1,6 +1,7 @@
 """The port's VIO slice against the JAX package: the in-memory renderer
-against the dataset generator, then both `VioPipeline`s on the same frames,
-and the port's independence from JAX."""
+against the dataset generator, then both `VioPipeline`s on the same frames
+(with loop closure on a vocabulary trained online), and the port's
+independence from JAX."""
 
 import os
 import subprocess
@@ -19,6 +20,7 @@ from okvis2x_tpu.pipeline.vio import PipelineConfig
 from okvis2x_tpu.pipeline.vio import VioPipeline as JVioPipeline
 from okvis2x_tpu_torch import convert
 from okvis2x_tpu_torch.cameras import pinhole
+from okvis2x_tpu_torch.frontend import bow
 from okvis2x_tpu_torch.io import synthetic
 from okvis2x_tpu_torch.pipeline.vio import VioPipeline
 
@@ -29,6 +31,9 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 8
+# the online vocabulary is trained once the keyframe records hold this many
+# descriptors: at the second keyframe of the run
+VOCAB_MIN_DESC = 300
 
 
 @pytest.fixture(scope="module")
@@ -72,23 +77,46 @@ def _run(pipe, seq):
     return out
 
 
-def test_pipeline_matches_jax(seq):
-    """The small configuration of tests/test_pipeline.py with the features
-    the port does not have yet switched off; positions within 1 cm, the
-    association counts equal in 6 of 8 frames and within 10% elsewhere."""
+def jax_init_indices(n, k, seed=0):
+    """The JAX package's k-means seed (jax.random), drawn for the port."""
+    import jax
+
+    return torch.as_tensor(np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n)[:k]))
+
+
+@pytest.fixture(scope="module")
+def runs(seq):
+    """The small configuration of tests/test_pipeline.py with loop closure on
+    a vocabulary trained online (`vocab_path=""`), run by both packages; the
+    port draws its k-means seed as the JAX package does.  No keyframe is old
+    enough to be a loop candidate, so loop closure only trains, indexes and
+    queries.  Returns (JAX pipeline, port pipeline, their frame results)."""
     est_cfg = EstimatorConfig(num_keyframes=4, num_imu_frames=3, cap_frames=10,
                               cap_landmarks=512, cap_obs=4096, cap_imu_links=9,
                               cap_imu_samples=128, max_iterations=5, keypoint_sigma_px=1.0)
     pipe_cfg = PipelineConfig(max_keypoints=256, octaves=1, harris_threshold=1e-6,
-                              keyframe_match_fraction=0.5, do_loop_closures=False,
+                              keyframe_match_fraction=0.5, do_loop_closures=True,
+                              vocab_path="", vocab_k=64, vocab_min_desc=VOCAB_MIN_DESC,
                               deferred_frontend=False, pipelined_solve=False, pose_refine=False)
     c = seq.camera
     args = (c["fx"], c["fy"], c["cx"], c["cy"], c["width"], c["height"])
     jcam = jpin.make_pinhole(*args, model=c["model"], dist_params=c["dist_params"])
     tcam = pinhole.make_pinhole(*args, model=c["model"], dist_params=c["dist_params"])
-    ref = _run(JVioPipeline([jcam, jcam], seq.T_SC, est_cfg, pipe_cfg), seq)
-    got = _run(VioPipeline([tcam, tcam], seq.T_SC, convert.estimator_config(est_cfg),
-                           convert.pipeline_config(pipe_cfg), device="cpu"), seq)
+    jp = JVioPipeline([jcam, jcam], seq.T_SC, est_cfg, pipe_cfg)
+    tp = VioPipeline([tcam, tcam], seq.T_SC, convert.estimator_config(est_cfg),
+                     convert.pipeline_config(pipe_cfg), device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bow, "init_indices", jax_init_indices)
+        ref, got = _run(jp, seq), _run(tp, seq)
+    jp._lc_drain()
+    tp._lc_drain()
+    return jp, tp, ref, got
+
+
+def test_pipeline_matches_jax(runs):
+    """Positions within 1 cm, the association counts equal in 6 of 8 frames
+    and within 10% elsewhere."""
+    _, _, ref, got = runs
     assert len(got) == len(ref) == N_FRAMES
     gap = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(got, ref))
     assert gap < 0.01, gap
@@ -98,6 +126,27 @@ def test_pipeline_matches_jax(seq):
         assert (np.abs(a[1] - b[1]) <= np.ceil(0.1 * b[1])).all(), (a[1], b[1])
     assert [a[2:] for a in got] == [b[2:] for b in ref]  # keyframe flags, tracking quality
     assert sum(int(b[1][1]) for b in ref) > 50  # the run triangulated landmarks
+
+
+def test_online_vocabulary_matches_jax(runs):
+    """The vocabulary trained in the run, every keyframe's words and the BoW
+    scores equal the JAX pipeline's; recognition stayed on the frame
+    thread."""
+    jp, tp, _, _ = runs
+    assert tp.vocab is not None and not tp._vocab_pretrained and not tp._use_async_pr()
+    np.testing.assert_array_equal(tp.vocab.numpy(), convert.pack_pm1(jp.vocab))
+    assert list(tp.kf_records) == list(jp.kf_records) and len(tp.kf_records) >= 3
+    first = sum(int(r["valid"].sum()) for r in list(jp.kf_records.values())[:1])
+    assert first < VOCAB_MIN_DESC  # trained at a later keyframe, earlier ones re-indexed
+    for f, r in jp.kf_records.items():
+        np.testing.assert_array_equal(tp.kf_records[f]["packed"].view(np.uint32), r["packed"])
+        np.testing.assert_array_equal(tp.kf_records[f]["words"], r["words"])
+    tdb, jdb = tp.bow_db, jp.bow_db
+    assert tdb.n_frames == jdb.n_frames
+    np.testing.assert_array_equal(tdb.word_df, jdb.word_df)
+    for f, r in jp.kf_records.items():
+        assert tdb.query(r["words"], r["valid"], top=8) == jdb.query(r["words"], r["valid"],
+                                                                     top=8)
 
 
 def test_port_imports_no_jax():
