@@ -22,7 +22,7 @@
    The fused kernel is also held against its plain version from a second
    host thread on a CUDA stream of its own, as the place-recognition worker
    launches it;
-4. VIO: renders 20 frames (1 s) of the synthetic circuit at the EuRoC
+4. VIO: renders 12 frames (0.6 s) of the synthetic circuit at the EuRoC
    operating point (752x480 stereo at 20 Hz, 200 Hz IMU, 704 keypoints) in
    memory and feeds them to `VioPipeline` on the GPU under the JAX package's
    default `PipelineConfig` (pose refinement, pipelined solve, loop closure
@@ -38,7 +38,8 @@
    been launched and the matches must equal the CPU's;
 6. synchronous loop closure: the same operating point on a circuit of
    radius 0.8 m (one lap in about 125 frames; 150 frames rendered once for
-   phases 6 to 9, which run 128, 30, 128 and 150 of them) with the synchronous, non-pipelined path (BoW place
+   phases 6 to 9, which run 128, 20, 128 and 150 of them) with the
+   synchronous, non-pipelined path (BoW place
    recognition on the shipped vocabulary, loop matching, non-central
    RANSAC, in-line pose-graph solve), then `finish()` and the final BA: at
    least one closure must be accepted, the fused kernel must have been
@@ -49,7 +50,7 @@
    component; session B is a new pipeline without a vocabulary file
    (`vocab_path=""`) in phase 6's configuration that loads it (a vocabulary
    of 256 words bootstrapped from A's descriptors: binary k-means on the
-   fused kernel) and runs the first 30 frames from a world frame 1.5 m
+   fused kernel) and runs the first 20 frames from a world frame 1.5 m
    lateral and 0.1 rad of yaw off A's (moved so right after the
    estimator's first state, before the first keyframe is recorded): B must
    relocalise, its poses from then on must lie within 0.2 m and 0.05 rad
@@ -58,6 +59,18 @@
    verification's mutual match must equal the plain version's, and the
    fused kernel must have been launched from the sites "vocab" and
    "reloc";
+7b. the dataset app: the port's `generate` writes the first 30 frames of
+   that circuit (752x480 PNGs, 200 Hz IMU, ground truth) in the EuRoC
+   layout under build/app_phase/, with an okvis2.yaml-schema config; the
+   first and last frames read back through `EurocDataset` must equal
+   `render_sequence`'s bit for bit; `okvis2x_tpu_torch.apps.okvis2x_app.main`
+   then runs `--mode slam` on it on the default device (cuda:0) with both
+   debug CSVs: `trajectory.tum` must have a row a frame,
+   `final_trajectory.tum` a row an estimator state, the online ATE must be
+   at most 0.25 m, the IMU CSV a row per IMU sample fed, the tracks CSV rows,
+   and the fused kernel must have been launched from the association and the
+   vocabulary descent; it prints the frame times, the peak memory and the
+   launches by site;
 8. asynchronous loop closure on the same frames: the flagship configuration
    of tools/slam_bench.py without its deferred frontend (place recognition
    on the worker thread, the background optimisation of the history,
@@ -110,7 +123,7 @@ MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # NVIDIA's table of arithmetic instruction throughput, compute capability 9.0
 POPC_PER_CLOCK_PER_SM = 16
 GRAPH_LAUNCHES = 100
-N_FRAMES = 20  # the VIO phase: 1 s of the sequence
+N_FRAMES = 12  # the VIO phase: 0.6 s of the sequence
 # the loop-closure phases: a lap of the 0.8 m circuit (1 rad/s) is about 125
 # frames; the flagship records keyframes more sparsely and a call later, and
 # gets the frames of the next keyframes after the lap as well
@@ -137,9 +150,13 @@ LC_PIPES = {
 LC_ESTS = {"synchronous": {}, "asynchronous": FLAGSHIP_EST, "flagship": FLAGSHIP_EST}
 # the multi-session phase: session B runs this many frames from a world frame
 # 1.5 m lateral and 0.1 rad of yaw off session A's (tests/test_multisession.py)
-MS_FRAMES = 30
+MS_FRAMES = 20
 MS_OFFSET = (1.5, 0.1)
 MS_POS_TOL_M, MS_ROT_TOL_RAD = 0.2, 0.05
+# the app phase: this many frames of the 0.8 m circuit written as a dataset
+# (the app runs the JAX app's estimator, 10 LM iterations without early
+# exit: about 2.5 s a frame on the card; 30 frames keep the phase near 90 s)
+APP_FRAMES = 30
 COMPARE_EVERY = 16  # flagship frames between two holds of the kernel against its plain version
 PCG_NODES = (300, 1000)
 PCG_ITERATIONS = 15  # PipelineConfig.full_graph_iterations
@@ -1118,6 +1135,159 @@ def multisession_phase(dev, card, vio_a, seq):
     return sites
 
 
+def app_config(path, seq):
+    """An okvis2.yaml-schema config for the rendered rig, as the reference's
+    files are written: the %YAML header, one flow mapping a camera."""
+    c = seq.camera
+    cams = []
+    for T in seq.T_SC:
+        M = np.eye(4)
+        M[:3, 3] = T[:3]
+        rows = ",\n          ".join(", ".join(repr(float(v)) for v in r) for r in M)
+        cams.append(f"""    - {{T_SC:
+        [ {rows}],
+        image_dimension: [{c['width']}, {c['height']}],
+        distortion_coefficients: [{", ".join(repr(d) for d in c['dist_params'])}],
+        distortion_type: radialtangential,
+        focal_length: [{c['fx']!r}, {c['fy']!r}],
+        principal_point: [{c['cx']!r}, {c['cy']!r}],
+        camera_type: gray, # gray, rgb, gray+depth, rgb+depth
+        slam_use: okvis}}""")
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\ncameras:\n" + "\n".join(cams) + """
+
+imu_parameters:
+    use: true
+    sigma_g_c: 12.0e-4 # gyro noise density [rad/s/sqrt(Hz)]
+    sigma_a_c: 8.0e-3 # accelerometer noise density [m/s^2/sqrt(Hz)]
+    sigma_gw_c: 4.0e-6
+    sigma_aw_c: 4.0e-5
+    g: 9.81007
+
+estimator_parameters:
+    num_keyframes: 5
+    num_loop_closure_frames: 5
+    num_imu_frames: 3
+    do_loop_closures: true
+    realtime_max_iterations: 10
+""")
+
+
+def app_phase(dev, card):
+    """The port's dataset app (`okvis2x_tpu_torch.apps.okvis2x_app.main`) in
+    slam mode on an EuRoC-layout dataset that the port's `generate` writes
+    under build/: APP_FRAMES frames of the 0.8 m circuit at the EuRoC
+    operating point, with an okvis2.yaml-schema config and both debug CSVs,
+    on the default device (cuda:0) or on `dev` when that is the CPU.
+    Returns the fused kernel's launches by site."""
+    import os
+    import shutil
+
+    import torch
+    from okvis2x_tpu_torch.apps import okvis2x_app
+    from okvis2x_tpu_torch.io import euroc, synthetic, trajectory_io
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
+    from okvis2x_tpu_torch.utils import timing
+
+    what = "app"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "app_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    ds_dir, out = os.path.join(root, "dataset"), os.path.join(root, "out")
+    kw = dict(duration=0.3 + APP_FRAMES / 20.0, frame_rate=20.0, imu_rate=200.0, width=752,
+              height=480, fx=460.0, density=22.0, seed=3, trajectory="circuit",
+              scene_version=2, traj_kwargs=SMALL_CIRCUIT)
+    t0 = time.perf_counter()
+    synthetic.generate(ds_dir, **kw)
+    seq = synthetic.render_sequence(**kw)
+    cfg = os.path.join(root, "okvis2.yaml")
+    app_config(cfg, seq)
+    ds = euroc.EurocDataset(ds_dir)
+    if len(ds.frames) != APP_FRAMES:
+        raise RuntimeError(f"{what}: the dataset has {len(ds.frames)} frames")
+    for k in (0, APP_FRAMES - 1):
+        for c in range(2):
+            img = ds.load_image(ds.frames[k].paths[c])
+            if not np.array_equal(img, seq.images[k, c].astype(np.float32) / 255.0):
+                raise RuntimeError(f"{what}: frame {k} of cam {c} read back differs from "
+                                   "render_sequence's")
+    n_imu = 0
+    n_frames = 0
+    for kind, _ in ds.events():
+        if kind == "frames":
+            n_frames += 1
+            if n_frames == APP_FRAMES:
+                break
+        else:
+            n_imu += 1
+    t_data = time.perf_counter() - t0
+
+    # time each frame to the end of its device work, and keep the pipeline
+    wall, pipes = [], []
+    process_frame = VioPipeline.process_frame
+
+    def timed(self, *args, **kwargs):
+        t = time.perf_counter()
+        info = process_frame(self, *args, **kwargs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall.append(time.perf_counter() - t)
+        if not pipes:
+            pipes.append(self)
+        return info
+
+    argv = ["--dataset", ds_dir, "--config", cfg, "--mode", "slam", "--output", out,
+            "--max-frames", str(APP_FRAMES), "--imu-csv", os.path.join(out, "imu.csv"),
+            "--tracks-csv", os.path.join(out, "tracks.csv")]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    else:
+        torch.cuda.reset_peak_memory_stats(dev)
+    VioPipeline.process_frame = timed
+    timing.reset()  # the stage times the app prints are its own
+    hamming.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ate = okvis2x_app.main(argv)
+    finally:
+        VioPipeline.process_frame = process_frame
+    t_run = time.perf_counter() - t0
+    sites = dict(hamming.hamming_match.site_launches)
+    ERRORS.check(what)
+    vio = pipes[0]
+    if vio.device != dev:
+        raise RuntimeError(f"{what}: the app ran on {vio.device}, not {dev}")
+    ts, _ = trajectory_io.read_tum(os.path.join(out, "trajectory.tum"))
+    fts, _ = trajectory_io.read_tum(os.path.join(out, "final_trajectory.tum"))
+    n_est = len(vio.est.full_trajectory()[0])
+    if len(ts) != APP_FRAMES or len(fts) != n_est:
+        raise RuntimeError(f"{what}: trajectory.tum has {len(ts)} rows for {APP_FRAMES} "
+                           f"frames, final_trajectory.tum {len(fts)} for {n_est} states")
+    if ate is None or not ate <= ATE_LIMIT_M:
+        raise RuntimeError(f"{what}: online ATE {ate} m exceeds {ATE_LIMIT_M} m")
+    with open(os.path.join(out, "imu.csv")) as f:
+        imu_rows = sum(1 for _ in f) - 1
+    with open(os.path.join(out, "tracks.csv")) as f:
+        track_rows = sum(1 for _ in f) - 1
+    if imu_rows != n_imu or track_rows <= 0:
+        raise RuntimeError(f"{what}: the IMU CSV has {imu_rows} rows for {n_imu} samples fed, "
+                           f"the tracks CSV {track_rows}")
+    if dev.type == "cuda" and (sites.get("assoc", 0) <= 0 or sites.get("bow", 0) <= 0):
+        raise RuntimeError(f"{what}: the fused kernel's launches by site {sites} lack the "
+                           "association or the vocabulary descent")
+    ms = np.asarray(wall) * 1e3
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB" if dev.type == "cuda"
+            else "not measured")
+    print(f"{what}: dataset of {APP_FRAMES} frames (752x480 PNG, {n_imu} IMU samples before "
+          f"the last frame) written, read back and checked in {t_data:.1f} s; "
+          f"okvis2x_app --mode slam on {vio.device}: {t_run:.1f} s, online ATE {ate:.4f} m, "
+          f"{len(fts)} final-BA states, ms/frame p50 {np.percentile(ms, 50):.1f} p90 "
+          f"{np.percentile(ms, 90):.1f} max {ms.max():.1f}, peak allocated {peak}, "
+          f"IMU CSV {imu_rows} rows, tracks CSV {track_rows} rows; fused match launches by "
+          f"site {sites} ({card})")
+    return sites
+
+
 def drifted_circle(K, rng, radius=5.0):
     """K keyframes on a circle with drifting estimates, noisy odometry edges
     to the next two keyframes and loop edges from the last quarter to the
@@ -1238,12 +1408,16 @@ def main() -> int:
                 t0 = time.perf_counter()
                 add_sites(multisession_phase(dev, card, vio, seq))
                 print(f"multi-session phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
+                add_sites(app_phase(dev, card))
+                print(f"app phase: {time.perf_counter() - t0:.1f} s")
             del vio
         t0 = time.perf_counter()
         pcg_phase(dev, card, cpu_solves)
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
     # times at 704x1024, the map matching's shape; launches over phases 4-9
+    # and the app phase
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

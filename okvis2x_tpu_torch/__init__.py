@@ -24,10 +24,13 @@ Layer map (as in okvis2x_tpu):
   solver/    batched GN/LM + Schur          graph/     sliding window,
   frontend/  detection, description,                   marginalisation
              matching, triangulation        ops/       the Hamming kernel
-  pipeline/  per-frame orchestration        io/        synthetic data, ATE
-  parallel/  matrix-free pose-graph PCG     utils/     timing, the
-  convert.py state from the JAX package                forward-AD lock
-             (numpy)                        graph/component.py  map files
+  pipeline/  per-frame orchestration        io/        datasets (EuRoC,
+  parallel/  matrix-free pose-graph PCG                extended, Leica, RPG),
+  apps/      the dataset app                           configs, PNG, YAML,
+  api.py     public state types                        synthetic data, ATE
+  convert.py state from the JAX package     utils/     timing, the
+             (numpy)                                   forward-AD lock
+                                            graph/component.py  map files
 
 Ported so far: the stereo-inertial VIO path (``pipeline.vio.VioPipeline``)
 with pose refinement and the pipelined solve or the deferred fused frontend
@@ -38,9 +41,11 @@ place-recognition worker, the background optimisation of
 single-device matrix-free pose-graph solver of ``parallel/dist_posegraph.py``
 and the final BA; a vocabulary trained online when there is no vocabulary
 file, and multi-session maps (save and load a session, relocalise against
-it, export the map).  Semantic weighting, GNSS, depth, LiDAR, submaps, the
-learned models, ROS2 and the multi-device ``parallel/`` solvers are not
-ported yet.
+it, export the map); the dataset app ``apps/okvis2x_app.py`` (vio and slam
+modes on EuRoC-layout datasets with okvis2.yaml-schema configs, the
+recorder, the debug CSVs) with its own PNG codec and YAML reader.  Semantic
+weighting, GNSS, depth, LiDAR, submaps, the learned models, ROS2 and the
+multi-device ``parallel/`` solvers are not ported yet.
 
 The entry points run on the first CUDA device unless the caller names
 another device (``device="cpu"`` for the CPU).

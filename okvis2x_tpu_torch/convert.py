@@ -18,6 +18,7 @@ from okvis2x_tpu_torch.cameras.pinhole import Camera
 from okvis2x_tpu_torch.frontend.bow import HierVocabulary
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, FrameState, SlidingWindowEstimator
 from okvis2x_tpu_torch.imu.preintegration import ImuParams, Preintegrated
+from okvis2x_tpu_torch.io import config
 from okvis2x_tpu_torch.pipeline.vio import PipelineConfig
 from okvis2x_tpu_torch.solver.gauss_newton import StackedCameras
 from okvis2x_tpu_torch.solver.problem import BAProblem
@@ -61,6 +62,26 @@ def stacked_cameras(cams, dtype=torch.float64, device=None) -> StackedCameras:
 
 def imu_params(params) -> ImuParams:
     return ImuParams(**{k: float(getattr(params, k)) for k in ImuParams._fields})
+
+
+def vi_config(vi) -> config.ViConfig:
+    """JAX `ViConfig` -> port `ViConfig`: the same values in the port's
+    dataclasses, cameras as float64 `Camera`s, the IMU as `ImuParams`."""
+
+    def conv(v, name=""):
+        if name == "imu":
+            return imu_params(v)
+        if name == "camera" and hasattr(v, "fxfycxcy"):  # not the CameraParams
+            return camera(v)
+        if dataclasses.is_dataclass(v):
+            cls = getattr(config, type(v).__name__)
+            return cls(**{f.name: conv(getattr(v, f.name), f.name)
+                          for f in dataclasses.fields(cls)})
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return np.array(v) if isinstance(v, np.ndarray) else v
+
+    return conv(vi)
 
 
 def preintegrated(pre, dtype=torch.float64, device=None) -> Preintegrated:

@@ -75,6 +75,33 @@ def quat_to_matrix(q: np.ndarray) -> np.ndarray:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion [x,y,z,w] (Shepperd's method, the four
+    candidate solutions selected by `where`, as ``core/se3.matrix_to_quat``;
+    numpy's sqrt is correctly rounded, as XLA's is)."""
+    m = np.asarray(m, np.float64)
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    sw = np.sqrt(np.maximum(1.0 + tr, 1e-12))
+    sx = np.sqrt(np.maximum(1.0 + m00 - m11 - m22, 1e-12))
+    sy = np.sqrt(np.maximum(1.0 - m00 + m11 - m22, 1e-12))
+    sz = np.sqrt(np.maximum(1.0 - m00 - m11 + m22, 1e-12))
+    qw_w = np.stack([(m21 - m12) / (2 * sw), (m02 - m20) / (2 * sw),
+                     (m10 - m01) / (2 * sw), sw / 2], axis=-1)
+    qx_w = np.stack([sx / 2, (m01 + m10) / (2 * sx),
+                     (m02 + m20) / (2 * sx), (m21 - m12) / (2 * sx)], axis=-1)
+    qy_w = np.stack([(m01 + m10) / (2 * sy), sy / 2,
+                     (m12 + m21) / (2 * sy), (m02 - m20) / (2 * sy)], axis=-1)
+    qz_w = np.stack([(m02 + m20) / (2 * sz), (m12 + m21) / (2 * sz),
+                     sz / 2, (m10 - m01) / (2 * sz)], axis=-1)
+    q = np.where((tr > 0.0)[..., None], qw_w,
+                 np.where(((m00 > m11) & (m00 > m22))[..., None], qx_w,
+                          np.where((m11 > m22)[..., None], qy_w, qz_w)))
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
 def delta_q(dalpha: np.ndarray) -> np.ndarray:
     """Small-angle quaternion exp(dalpha/2) (≙ okvis::kinematics::deltaQ)."""
     dalpha = np.asarray(dalpha, np.float64)

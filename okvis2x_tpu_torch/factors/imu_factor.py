@@ -62,3 +62,11 @@ def residual_on_manifold(params, pre, sqrt_info, T_WS0, sb0, T_WS1, sb1, d0, dsb
         params, pre, sqrt_info,
         se3.retract(T_WS0, d0), sb0 + dsb0, se3.retract(T_WS1, d1), sb1 + dsb1,
     )
+
+
+def pseudo_residual(sigma_v, sigma_q, dt, T_WS0, sb0, T_WS1, sb1):
+    """Weak constant-velocity + constant-pose-rate prior (the reference's
+    PseudoImuError)."""
+    d = se3.local_delta(T_WS0, T_WS1)
+    dt = torch.clamp(torch.as_tensor(dt, dtype=d.dtype, device=d.device), min=1e-3)
+    return torch.cat([d / (sigma_q * dt[..., None]), (sb1 - sb0) / sigma_v], dim=-1)

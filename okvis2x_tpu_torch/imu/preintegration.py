@@ -161,6 +161,24 @@ def preintegrate(
     )
 
 
+def propagate_state(params: ImuParams, pre: Preintegrated, T_WS0: torch.Tensor,
+                    v_W0: torch.Tensor, bg: torch.Tensor, ba: torch.Tensor):
+    """Predict (T_WS1, v_W1) from preintegrated quantities, with first-order
+    bias correction around the linearisation point."""
+    dbg = bg - pre.lin_bg
+    dba = ba - pre.lin_ba
+    dp = pre.dp + _mv(pre.dp_dbg, dbg) + _mv(pre.dp_dba, dba)
+    dv = pre.dv + _mv(pre.dv_dbg, dbg) + _mv(pre.dv_dba, dba)
+    dq = se3.quat_multiply(pre.dq, se3.delta_q(_mv(pre.dq_dbg, dbg)))
+    g_W = torch.tensor([0.0, 0.0, -params.g], dtype=pre.dp.dtype, device=pre.dp.device)
+    C_WS0 = se3.quat_to_matrix(se3.se3_q(T_WS0))
+    dt = pre.dt[..., None]
+    t1 = se3.se3_t(T_WS0) + v_W0 * dt + 0.5 * g_W * dt * dt + _mv(C_WS0, dp)
+    v1 = v_W0 + g_W * dt + _mv(C_WS0, dv)
+    q1 = se3.quat_normalize(se3.quat_multiply(se3.se3_q(T_WS0), dq))
+    return torch.cat([t1, q1], dim=-1), v1
+
+
 def init_pose_from_accel(acc_mean: torch.Tensor, gyr_mean: torch.Tensor) -> torch.Tensor:
     """Gravity-aligned initial pose with yaw = 0: the q whose C(q)^T (-g e_z)
     matches the measured specific-force direction."""

@@ -1,22 +1,26 @@
-"""Synthetic stereo-inertial sequences rendered in memory (numpy).
+"""Synthetic stereo-inertial datasets (numpy).
 
 Counterpart of the dot-field part of ``okvis2x_tpu/io/synthetic.py``: the
-same analytic trajectories, scenes, splat renderer and IMU noise, so
-`render_sequence` yields exactly the IMU samples, ground truth and uint8
-stereo images that ``okvis2x_tpu.io.synthetic.generate`` writes to disk for
-the same arguments — without files or an image codec.  Writing the EuRoC
-layout and the textured world wait for a later change.
+same analytic trajectories, scenes, splat renderer and IMU noise.
+`render_sequence` yields in memory exactly the IMU samples, ground truth and
+uint8 stereo images that `generate` writes in the EuRoC layout (PNGs by the
+port's codec), and `generate` writes what ``okvis2x_tpu.io.synthetic.
+generate`` writes for the same arguments.  The textured world and its class
+maps wait for the segmentation item (A4 in ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
-from okvis2x_tpu_torch.cameras import pinhole_np
+from okvis2x_tpu_torch.cameras import pinhole, pinhole_np
 from okvis2x_tpu_torch.core import se3np
 from okvis2x_tpu_torch.imu.preintegration import ImuParams
+from okvis2x_tpu_torch.io import png
+from okvis2x_tpu_torch.io.xdataset import GNSS_LEAP_NS
 
 T0_NS = 1_400_000_000_000_000_000  # first IMU timestamp of a sequence [ns]
 
@@ -219,6 +223,81 @@ class Sequence:
             yield "frames", (t, [im.astype(np.float32) / 255.0 for im in self.images[k]])
 
 
+def render_depth(cam, T_WC, pts, r: int = 4):
+    """Depth image matching `render_image`'s splats: each dot's splat window
+    is filled with its camera-frame z; elsewhere 0 (invalid)."""
+    cam_np = cam if isinstance(cam, pinhole_np.NpCamera) else pinhole_np.to_numpy(cam)
+    H, W = cam_np.height, cam_np.width
+    p_C = se3np.se3_apply(se3np.se3_inverse(np.asarray(T_WC, np.float64)),
+                          np.asarray(pts, np.float64))
+    uv, valid = pinhole_np.project(cam_np, p_C)
+    valid = valid & (p_C[:, 2] > 0.3)
+    depth = np.zeros((H, W), np.float32)
+    for i in np.argsort(-p_C[:, 2]):  # near dots overwrite far ones
+        if not valid[i]:
+            continue
+        cx, cy = int(round(uv[i, 0])), int(round(uv[i, 1]))
+        if not (r <= cx < W - r and r <= cy < H - r):
+            continue
+        depth[cy - r:cy + r + 1, cx - r:cx + r + 1] = p_C[i, 2]
+    return depth
+
+
+class _Scene:
+    """What one set of generator arguments fixes: camera, trajectory,
+    extrinsics, IMU stream (noise drawn from `rng`, which the GPS noise
+    continues) and the dots."""
+
+    def __init__(self, duration, frame_rate, imu_rate, width, height, baseline, imu_noise,
+                 n_points, seed, trajectory, fx, density, scene_version, traj_kwargs):
+        self.imu = ImuParams()
+        self.rng = np.random.default_rng(seed + 1)
+        self.camera = dict(fx=fx, fy=fx, cx=width / 2, cy=height / 2, width=width,
+                           height=height, model="radtan",
+                           dist_params=[-0.25, 0.06, 1e-4, -1e-4])
+        self.cam_np = pinhole_np.NpCamera(
+            fxfycxcy=np.array([fx, fx, width / 2, height / 2], np.float64),
+            dist_params=np.array(self.camera["dist_params"], np.float64),
+            width=int(width), height=int(height), model="radtan",
+        )
+        tk = dict(traj_kwargs or {})
+        if trajectory == "circuit":
+            self.traj = lambda t, g=9.81007: circuit_trajectory(t, g, **tk)  # noqa: E731
+        else:
+            self.traj = analytic_trajectory
+        self.T_SC = np.array(
+            [[-baseline / 2, 0, 0, 0, 0, 0, 1.0], [baseline / 2, 0, 0, 0, 0, 0, 1.0]])
+
+        t_imu = np.arange(0.0, duration, 1.0 / imu_rate)
+        _, _, _, omega_S, f_S = self.traj(t_imu, self.imu.g)
+        if imu_noise:
+            f_S = f_S + self.rng.normal(0, self.imu.sigma_a * np.sqrt(imu_rate), f_S.shape)
+            omega_S = omega_S + self.rng.normal(0, self.imu.sigma_g * np.sqrt(imu_rate),
+                                                omega_S.shape)
+        self.gyr, self.acc = omega_S, f_S
+        self.imu_ns = np.array([T0_NS + int(round(t * 1e9)) for t in t_imu], np.int64)
+
+        if trajectory == "circuit":
+            self.pts, self.bright, self.radius = make_circuit_scene(
+                radius=tk.get("radius", 8.0), density=density, seed=seed,
+                sectors=6 if scene_version >= 2 else 0)
+        else:
+            self.pts, self.bright, self.radius = make_scene(n_points, seed)
+        self.t_frames = np.arange(0.3, duration, 1.0 / frame_rate)
+        self.p, self.q, self.v, _, _ = self.traj(self.t_frames, self.imu.g)
+        self.frame_ns = np.array([T0_NS + int(round(t * 1e9)) for t in self.t_frames],
+                                 np.int64)
+
+    def T_WC(self, i, c):
+        return se3np.se3_multiply(np.concatenate([self.p[i], self.q[i]]), self.T_SC[c])
+
+    def image(self, i, c):
+        """Frame i of camera c as uint8."""
+        img = render_image(self.cam_np, self.T_WC(i, c), self.pts, self.bright, self.radius,
+                           seed=i * 2 + c)
+        return (img * 255).astype(np.uint8)
+
+
 def render_sequence(
     duration: float = 5.0,
     frame_rate: float = 10.0,
@@ -235,52 +314,130 @@ def render_sequence(
     scene_version: int = 2,
     traj_kwargs: dict | None = None,
 ) -> Sequence:
-    """Render the dot-field sequence that ``generate`` writes for the same
+    """Render the dot-field sequence that `generate` writes for the same
     arguments (trajectory "sinusoid" or "circuit")."""
-    imu = ImuParams()
-    rng = np.random.default_rng(seed + 1)
-    camera = dict(fx=fx, fy=fx, cx=width / 2, cy=height / 2, width=width,
-                  height=height, model="radtan", dist_params=[-0.25, 0.06, 1e-4, -1e-4])
-    cam_np = pinhole_np.NpCamera(
-        fxfycxcy=np.array([fx, fx, width / 2, height / 2], np.float64),
-        dist_params=np.array(camera["dist_params"], np.float64),
-        width=int(width), height=int(height), model="radtan",
-    )
-    tk = dict(traj_kwargs or {})
-    if trajectory == "circuit":
-        traj = lambda t, g=9.81007: circuit_trajectory(t, g, **tk)  # noqa: E731
-    else:
-        traj = analytic_trajectory
-    T_SC = np.array(
-        [[-baseline / 2, 0, 0, 0, 0, 0, 1.0], [baseline / 2, 0, 0, 0, 0, 0, 1.0]]
-    )
-
-    t_imu = np.arange(0.0, duration, 1.0 / imu_rate)
-    _, _, _, omega_S, f_S = traj(t_imu, imu.g)
-    if imu_noise:
-        f_S = f_S + rng.normal(0, imu.sigma_a * np.sqrt(imu_rate), f_S.shape)
-        omega_S = omega_S + rng.normal(0, imu.sigma_g * np.sqrt(imu_rate), omega_S.shape)
-    imu_ns = np.array([T0_NS + int(round(t * 1e9)) for t in t_imu], np.int64)
-
-    if trajectory == "circuit":
-        pts, bright, radius = make_circuit_scene(
-            radius=tk.get("radius", 8.0), density=density, seed=seed,
-            sectors=6 if scene_version >= 2 else 0)
-    else:
-        pts, bright, radius = make_scene(n_points, seed)
-    t_frames = np.arange(0.3, duration, 1.0 / frame_rate)
-    p, q, _, _, _ = traj(t_frames, imu.g)
-    frame_ns = np.array([T0_NS + int(round(t * 1e9)) for t in t_frames], np.int64)
-    images = np.zeros((len(t_frames), 2, height, width), np.uint8)
+    sc = _Scene(duration, frame_rate, imu_rate, width, height, baseline, imu_noise, n_points,
+                seed, trajectory, fx, density, scene_version, traj_kwargs)
+    images = np.zeros((len(sc.t_frames), 2, height, width), np.uint8)
     for c in range(2):
-        for i in range(len(t_frames)):
-            T_WC = se3np.se3_multiply(np.concatenate([p[i], q[i]]), T_SC[c])
-            img = render_image(cam_np, T_WC, pts, bright, radius, seed=i * 2 + c)
-            images[i, c] = (img * 255).astype(np.uint8)
+        for i in range(len(sc.t_frames)):
+            images[i, c] = sc.image(i, c)
     to_s = lambda ns: (ns - T0_NS) * 1e-9  # noqa: E731
-    frame_t = to_s(frame_ns)
+    frame_t = to_s(sc.frame_ns)
     return Sequence(
-        camera=camera, T_SC=T_SC, imu_ns=imu_ns, imu_t=to_s(imu_ns),
-        gyr=omega_S, acc=f_S, frame_ns=frame_ns, frame_t=frame_t,
-        images=images, gt=np.concatenate([frame_t[:, None], p, q], axis=1),
+        camera=sc.camera, T_SC=sc.T_SC, imu_ns=sc.imu_ns, imu_t=to_s(sc.imu_ns),
+        gyr=sc.gyr, acc=sc.acc, frame_ns=sc.frame_ns, frame_t=frame_t,
+        images=images, gt=np.concatenate([frame_t[:, None], sc.p, sc.q], axis=1),
     )
+
+
+def generate(
+    out_dir: str,
+    duration: float = 5.0,
+    frame_rate: float = 10.0,
+    imu_rate: float = 200.0,
+    width: int = 320,
+    height: int = 240,
+    baseline: float = 0.11,
+    imu_noise: bool = True,
+    n_points: int = 600,
+    seed: int = 3,
+    with_gps: bool = False,
+    with_lidar: bool = False,
+    with_depth: bool = False,
+    gps_rate: float = 5.0,
+    scene_version: int = 2,
+    gps_sigma: float = 0.05,
+    trajectory: str = "sinusoid",
+    fx: float = 280.0,
+    density: float = 22.0,
+    progress: bool = False,
+    traj_kwargs: dict | None = None,
+    world: str = "dots",
+    world_kwargs: dict | None = None,
+    with_classmap: bool = False,
+):
+    """Write a synthetic stereo-inertial dataset in the EuRoC layout under
+    `out_dir`; returns (camera, T_SC (2, 7), ground truth [t, p, q]).  The
+    files are those ``okvis2x_tpu.io.synthetic.generate`` writes for the same
+    arguments (PNGs that decode to the same pixels)."""
+    if world != "dots" or with_classmap:
+        raise NotImplementedError("the textured world and its class maps are not ported yet "
+                                  "(the segmentation item, A4 in ROADMAP.md)")
+    sc = _Scene(duration, frame_rate, imu_rate, width, height, baseline, imu_noise, n_points,
+                seed, trajectory, fx, density, scene_version, traj_kwargs)
+    root = os.path.join(out_dir, "mav0")
+    os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
+    with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+        for ns, g, a in zip(sc.imu_ns, sc.gyr, sc.acc):
+            f.write(f"{ns},{g[0]},{g[1]},{g[2]},{a[0]},{a[1]},{a[2]}\n")
+
+    for c in range(2):
+        os.makedirs(os.path.join(root, f"cam{c}", "data"), exist_ok=True)
+        with open(os.path.join(root, f"cam{c}", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for i, ns in enumerate(sc.frame_ns):
+                name = f"{ns}.png"
+                png.write(os.path.join(root, f"cam{c}", "data", name), sc.image(i, c), level=1)
+                f.write(f"{ns},{name}\n")
+                if progress and i % 200 == 0:
+                    print(f"  cam{c}: {i}/{len(sc.frame_ns)} frames rendered", flush=True)
+
+    # cam0-registered depth stream (depth0/, 16-bit PNG millimetres)
+    if with_depth:
+        os.makedirs(os.path.join(root, "depth0", "data"), exist_ok=True)
+        with open(os.path.join(root, "depth0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for i, ns in enumerate(sc.frame_ns):
+                dimg = render_depth(sc.cam_np, sc.T_WC(i, 0), sc.pts)
+                name = f"{ns}.png"
+                png.write(os.path.join(root, "depth0", "data", name),
+                          np.clip(dimg * 1000.0, 0, 65535).astype(np.uint16))
+                f.write(f"{ns},{name}\n")
+
+    p, q, v = sc.p, sc.q, sc.v
+    os.makedirs(os.path.join(root, "state_groundtruth_estimate0"), exist_ok=True)
+    with open(os.path.join(root, "state_groundtruth_estimate0", "data.csv"), "w") as f:
+        f.write("#timestamp,px,py,pz,qw,qx,qy,qz,vx,vy,vz,bgx,bgy,bgz,bax,bay,baz\n")
+        for i, ns in enumerate(sc.frame_ns):
+            f.write(f"{ns},{p[i,0]},{p[i,1]},{p[i,2]},"
+                    f"{q[i,3]},{q[i,0]},{q[i,1]},{q[i,2]},"
+                    f"{v[i,0]},{v[i,1]},{v[i,2]},0,0,0,0,0,0\n")
+
+    # GNSS stream (cartesian, in a shifted and yawed G frame)
+    if with_gps:
+        t_gps = np.arange(0.05, duration, 1.0 / gps_rate)
+        pg, _, _, _, _ = sc.traj(t_gps)
+        yaw_g = 0.4
+        Rg = np.array([[np.cos(yaw_g), -np.sin(yaw_g), 0],
+                       [np.sin(yaw_g), np.cos(yaw_g), 0], [0, 0, 1.0]])
+        t_G = np.array([30.0, -12.0, 4.0])
+        pos_G = pg @ Rg.T + t_G + sc.rng.normal(0, gps_sigma, (len(t_gps), 3))
+        os.makedirs(os.path.join(root, "gps0"), exist_ok=True)
+        with open(os.path.join(root, "gps0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],x,y,z,err_x,err_y,err_z\n")
+            for i, t in enumerate(t_gps):
+                ns = T0_NS + int(round(t * 1e9)) + GNSS_LEAP_NS
+                f.write(f"{ns},{pos_G[i,0]},{pos_G[i,1]},{pos_G[i,2]},"
+                        f"{gps_sigma},{gps_sigma},{gps_sigma}\n")
+
+    # LiDAR stream: rays to the first 120 scene dots (one point a line)
+    if with_lidar:
+        os.makedirs(os.path.join(root, "lidar0"), exist_ok=True)
+        with open(os.path.join(root, "lidar0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],x,y,z,intensity\n")
+            for ts in np.arange(0.3, duration, 0.1):
+                ps, qs, _, _, _ = sc.traj(np.array([ts]))
+                T_SW = se3np.se3_inverse(np.concatenate([ps[0], qs[0]]))
+                p_S = se3np.se3_apply(T_SW, sc.pts[:120])
+                keep = np.linalg.norm(p_S, axis=-1) < 15.0
+                for k, pt_S in enumerate(p_S):
+                    if not keep[k]:
+                        continue
+                    ns = T0_NS + int(round((ts + k * 1e-4) * 1e9))
+                    f.write(f"{ns},{pt_S[0]:.4f},{pt_S[1]:.4f},{pt_S[2]:.4f},1.0\n")
+
+    cam = pinhole.make_pinhole(fx, fx, width / 2, height / 2, width, height, model="radtan",
+                               dist_params=sc.camera["dist_params"])
+    return cam, sc.T_SC, np.concatenate([sc.t_frames[:, None], p, q], axis=1)

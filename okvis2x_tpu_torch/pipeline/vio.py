@@ -89,6 +89,7 @@ from okvis2x_tpu_torch.frontend import bow, descriptor, detector, matcher, ransa
 from okvis2x_tpu_torch.graph import component
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, SlidingWindowEstimator
 from okvis2x_tpu_torch.graph.fullgraph import FullGraphOptimizer
+from okvis2x_tpu_torch.io import debug_csv
 from okvis2x_tpu_torch.ops import hamming
 from okvis2x_tpu_torch.utils import timing
 
@@ -224,6 +225,9 @@ class VioPipeline:
         self.last_kf_fid: Optional[int] = None
         self.lm_desc: Dict[int, np.ndarray] = {}  # lid -> packed descriptor
         self.states_log = []  # (t, T_WS) after each frame
+        # debug CSV writers (≙ ViInterface::setImuCsvFile/setTracksCsvFile)
+        self._imu_csv = None
+        self._tracks_csv: Dict[int, debug_csv.TracksCsvWriter] = {}
         self.last_quality_fraction = 0.0
         self.path_length = 0.0
         self._last_solved_T = None
@@ -1210,7 +1214,29 @@ class VioPipeline:
 
     # ------------------------------------------------------------ frame loop
     def add_imu_measurement(self, t, gyr, acc):
+        if self._imu_csv is not None:
+            self._imu_csv.add(t, gyr, acc)
         self.est.add_imu_measurement(t, gyr, acc)
+
+    def add_gps_measurement(self, t, pos_G, err):
+        raise NotImplementedError("GNSS is not ported yet (A3 in ROADMAP.md)")
+
+    def set_imu_csv_file(self, path: str):
+        self._imu_csv = debug_csv.ImuCsvWriter(path)
+
+    def set_tracks_csv_file(self, cam: int, path: str):
+        self._tracks_csv[cam] = debug_csv.TracksCsvWriter(path)
+
+    def _write_tracks_csv(self, t: float, frame_data):
+        for c, w in self._tracks_csv.items():
+            if c >= len(frame_data):
+                continue
+            fd = frame_data[c]
+            sel = fd.lid >= 0
+            if not np.any(sel) or fd.packed is None:
+                continue
+            w.add_frame(t, fd.lid[sel], fd.uv[sel], np.full(int(sel.sum()), 1.0),
+                        fd.packed[sel])
 
     def _project_landmarks(self, cam_idx: int, T_WS: np.ndarray, hp: np.ndarray):
         """Host projection of homogeneous world landmarks into camera
@@ -1386,6 +1412,8 @@ class VioPipeline:
             looped = self._finish_frame(fid, t, is_kf)
         f = est.get_state(fid)
         self.states_log.append((t, f.T_WS.copy()))
+        if self._tracks_csv:
+            self._write_tracks_csv(t, frame_data)
         return dict(
             fid=fid, is_keyframe=is_kf, keyframe_fid=fid if is_kf else None,
             n_map=n_map, n_stereo=n_stereo, n_motion=n_motion, T_WS=f.T_WS.copy(),
@@ -1600,6 +1628,8 @@ class VioPipeline:
         est.pending_edge_jobs = []
         self._submit_item(item)
         self.states_log.append((t, f.T_WS.copy()))
+        if self._tracks_csv and fid in self.frames:
+            self._write_tracks_csv(t, self.frames[fid])
         n_map, n_stereo, n_motion = self._last_counts
         kf_fid, kf_flag = self._kf_event
         self._kf_event = (None, False)
@@ -1805,9 +1835,9 @@ class VioPipeline:
         """Dataset end: collect the pending window solve, consume the
         deferred frontend's cycles in flight, let the recognition worker
         finish its queue and stop, apply its last
-        proposals (then a window re-solve and a background dispatch), and
-        join and apply the background optimisation; `est.final_ba()` may
-        follow."""
+        proposals (then a window re-solve and a background dispatch),
+        join and apply the background optimisation, and flush the debug
+        CSVs; `est.final_ba()` may follow."""
         self._collect_pending()
         self._drain_deferred()
         self._lc_drain()
@@ -1816,3 +1846,6 @@ class VioPipeline:
             self.est.optimise()
             self.full_graph.dispatch(self.est)
         self.synchronise_full_graph(wait=True)
+        for w in [self._imu_csv, *self._tracks_csv.values()]:
+            if w is not None:
+                w.flush()

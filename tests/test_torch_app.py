@@ -1,0 +1,207 @@
+"""The port's dataset app against `apps/okvis2x_app.py`: both apps on one
+EuRoC-layout dataset written by the JAX package's generator and one
+okvis2.yaml-schema config, in `vio` mode on the CPU (the JAX app in a
+process of its own on two cores); the `slam` mode on a synthetic dataset;
+the recorder; and what the port refuses (the unported modes, GNSS events, a
+missing CUDA device)."""
+
+import filecmp
+import os
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from okvis2x_tpu.io import synthetic as jsyn
+from okvis2x_tpu_torch.apps import okvis2x_app
+from okvis2x_tpu_torch.io import euroc, png, synthetic, trajectory_io
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_FRAMES = 8
+POS_TOL_M = 0.01  # as tests/test_torch_slice.py holds the two pipelines
+
+
+def write_config(path, width, height, fx, dist, T_SC):
+    """An okvis2.yaml-schema config for the generator's stereo rig, written
+    as the reference's files are: the %YAML header, flow-mapping cameras."""
+    cams = []
+    for T in T_SC:
+        M = np.eye(4)
+        M[:3, 3] = T[:3]
+        rows = ",\n         ".join(", ".join(repr(float(v)) for v in r) for r in M)
+        cams.append(f"""    - {{T_SC:
+        [ {rows}],
+        image_dimension: [{width}, {height}],
+        distortion_coefficients: [{", ".join(repr(d) for d in dist)}],
+        distortion_type: radialtangential,
+        focal_length: [{fx!r}, {fx!r}],
+        principal_point: [{width / 2!r}, {height / 2!r}],
+        camera_type: gray, # gray, rgb, gray+depth, rgb+depth
+        slam_use: okvis}}""")
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\ncameras:\n" + "\n".join(cams) + """
+
+imu_parameters:
+    use: true
+    a_max: 176.0 # acceleration saturation [m/s^2]
+    g_max: 7.8 # gyro saturation [rad/s]
+    sigma_g_c: 12.0e-4
+    sigma_a_c: 8.0e-3
+    sigma_bg: 0.03
+    sigma_ba: 0.1
+    sigma_gw_c: 4.0e-6
+    sigma_aw_c: 4.0e-5
+    g: 9.81007
+
+estimator_parameters:
+    num_keyframes: 5
+    num_loop_closure_frames: 5
+    num_imu_frames: 3
+    do_loop_closures: true
+    realtime_max_iterations: 4
+""")
+
+
+@pytest.fixture(scope="module")
+def vio_runs(tmp_path_factory):
+    """Both apps in `vio` mode with both debug CSVs on one dataset and
+    config: the JAX app in a spawned process meanwhile the port's runs here.
+    Returns (dataset dir, port output dir, JAX output dir, port's ATE)."""
+    root = tmp_path_factory.mktemp("app")
+    ds = str(root / "ds")
+    kw = dict(duration=0.3 + N_FRAMES / 10.0 - 0.05, frame_rate=10.0, width=320, height=240)
+    _, T_SC, _ = jsyn.generate(ds, **kw)
+    cfg = str(root / "okvis2.yaml")
+    write_config(cfg, 320, 240, 280.0, [-0.25, 0.06, 1e-4, -1e-4], T_SC)
+    outs = {k: str(root / k) for k in ("port", "jax")}
+    for d in outs.values():
+        os.makedirs(d)
+
+    def args(k):
+        return ["--dataset", ds, "--config", cfg, "--mode", "vio", "--output", outs[k],
+                "--max-frames", str(N_FRAMES), "--imu-csv", os.path.join(outs[k], "imu.csv"),
+                "--tracks-csv", os.path.join(outs[k], "tracks.csv")]
+
+    # the reference app on two cores of its own: XLA's idle CPU threads spin
+    # (tests/test_torch_lc_slice.py's `pin_to_cores` takes the last six)
+    cores = sorted(os.sched_getaffinity(0))
+    pick = sorted(set(cores[-8:][:2]) or set(cores))
+    run = (f"import os, runpy, sys; os.sched_setaffinity(0, {pick}); sys.argv = sys.argv[1:]; "
+           "runpy.run_path(sys.argv[0], run_name='__main__')")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    with open(os.path.join(outs["jax"], "log.txt"), "w") as log:
+        ref = subprocess.Popen([sys.executable, "-c", run,
+                                os.path.join(REPO, "apps", "okvis2x_app.py"), *args("jax")],
+                               cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            ate = okvis2x_app.main([*args("port"), "--device", "cpu"])
+            rc = ref.wait(timeout=1200)
+        finally:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    with open(os.path.join(outs["jax"], "log.txt")) as f:
+        assert rc == 0, f.read()[-3000:]
+    return ds, outs["port"], outs["jax"], ate
+
+
+def test_vio_app_matches_jax_app(vio_runs):
+    """The same frame times; positions within 1 cm and rotations close; the
+    IMU CSVs identical; the ATE finite."""
+    _, port, ref, ate = vio_runs
+    a = np.loadtxt(os.path.join(port, "trajectory.tum"))
+    b = np.loadtxt(os.path.join(ref, "trajectory.tum"))
+    assert a.shape == b.shape == (N_FRAMES, 8)
+    np.testing.assert_array_equal(a[:, 0], b[:, 0])
+    gap = float(np.abs(a[:, 1:4] - b[:, 1:4]).max())
+    assert gap < POS_TOL_M, gap
+    assert float(np.abs(np.abs((a[:, 4:] * b[:, 4:]).sum(1)) - 1).max()) < 1e-4
+    assert filecmp.cmp(os.path.join(port, "imu.csv"), os.path.join(ref, "imu.csv"),
+                       shallow=False)
+    assert np.isfinite(ate) and ate < 0.5
+    assert not os.path.exists(os.path.join(port, "final_trajectory.tum"))
+
+
+def test_vio_app_tracks_csv(vio_runs):
+    """The tracks CSV has the reference's header and a row per tracked
+    keypoint of cam 0 in every frame, as many as the JAX app's within 10%."""
+    ds, port, ref, _ = vio_runs
+    rows = {}
+    for k, d in (("port", port), ("jax", ref)):
+        with open(os.path.join(d, "tracks.csv")) as f:
+            lines = f.read().splitlines()
+        assert lines[0] == "timestamp, landmark_id, z_tilde_x, z_tilde_y, z_tilde_stdev, descriptor"
+        rows[k] = [ln.split(", ") for ln in lines[1:]]
+    times = sorted({float(r[0]) for r in rows["port"]})
+    assert len(times) == N_FRAMES
+    np.testing.assert_allclose(times, [f.t for f in euroc.EurocDataset(ds).frames[:N_FRAMES]],
+                               rtol=0, atol=1e-9)
+    assert all(len(r[5]) == 96 for r in rows["port"])  # 12 words of 4 bytes, in hex
+    assert abs(len(rows["port"]) - len(rows["jax"])) <= 0.1 * len(rows["jax"])
+
+
+def test_slam_synthetic_test_writes_both_trajectories(tmp_path):
+    """`--synthetic-test --mode slam` on a few frames: the online and the
+    final-BA trajectories."""
+    out = str(tmp_path / "out")
+    ate = okvis2x_app.main(["--synthetic-test", "--mode", "slam", "--output", out,
+                            "--device", "cpu", "--max-frames", "3"])
+    assert np.isfinite(ate)
+    ts, Ts = trajectory_io.read_tum(os.path.join(out, "trajectory.tum"))
+    assert len(ts) == 3 and np.isfinite(Ts).all()
+    fts, fTs = trajectory_io.read_tum(os.path.join(out, "final_trajectory.tum"))
+    assert 1 <= len(fts) <= 3 and np.isfinite(fTs).all()
+    assert set(fts) <= set(ts)
+
+
+def test_record_mode_round_trip(tmp_path):
+    """--record: a dataset replayed through the fake driver into the
+    writer, read back with every frame and image exact."""
+    src = str(tmp_path / "src")
+    synthetic.generate(src, duration=1.0, frame_rate=10.0, width=64, height=48)
+    n_src = len(euroc.EurocDataset(src).frames)
+    out = str(tmp_path / "rec")
+    okvis2x_app.record_mode(types.SimpleNamespace(record=out, dataset=src, reader="euroc",
+                                                  max_frames=0))
+    a, b = euroc.EurocDataset(src), euroc.EurocDataset(out)
+    assert len(b.frames) == n_src >= 3
+    for fa, fb in zip(a.frames, b.frames):
+        for pa, pb in zip(fa.paths, fb.paths):
+            np.testing.assert_array_equal(png.read(pa), png.read(pb))
+    assert sum(1 for k, _ in b.events() if k == "imu") > 50
+
+
+@pytest.mark.parametrize("mode,item", [("depth", "A4"), ("rgbd", "A3"), ("lidar", "A5")])
+def test_unported_modes_raise(mode, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        okvis2x_app.main(["--synthetic-test", "--mode", mode, "--output", str(tmp_path),
+                          "--device", "cpu"])
+    assert not os.listdir(tmp_path)
+
+
+def test_gps_event_raises(tmp_path):
+    """A dataset with a GNSS stream: its first fix raises, it is not
+    dropped."""
+    ds = str(tmp_path / "ds")
+    _, T_SC, _ = synthetic.generate(ds, duration=0.6, width=64, height=48, with_gps=True)
+    cfg = str(tmp_path / "okvis2.yaml")
+    write_config(cfg, 64, 48, 280.0, [-0.25, 0.06, 1e-4, -1e-4], T_SC)
+    with pytest.raises(NotImplementedError, match="GNSS"):
+        okvis2x_app.main(["--dataset", ds, "--config", cfg, "--mode", "vio", "--output",
+                          str(tmp_path / "out"), "--device", "cpu"])
+
+
+def test_default_device_needs_cuda(tmp_path):
+    """Without --device the app runs on cuda:0; where there is no CUDA
+    device it raises before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present (tests/test_torch_cuda.py runs the app there)")
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        okvis2x_app.main(["--synthetic-test", "--mode", "vio", "--output", out])
+    assert not os.path.exists(out)

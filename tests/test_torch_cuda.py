@@ -196,6 +196,29 @@ def test_cuda_reloc_match_counts_its_site(cuda):
         assert torch.equal(g.cpu(), r)
 
 
+def test_cuda_app_runs_on_the_card_by_default(cuda, tmp_path, monkeypatch):
+    """Without --device the dataset app's pipeline runs on cuda:0 (where
+    there is no card it raises: tests/test_torch_app.py)."""
+    import os
+
+    from okvis2x_tpu_torch.apps import okvis2x_app
+    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
+
+    devices = []
+    init = VioPipeline.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        devices.append(self.device)
+
+    monkeypatch.setattr(VioPipeline, "__init__", spy)
+    out = str(tmp_path / "out")
+    ate = okvis2x_app.main(["--synthetic-test", "--mode", "vio", "--max-frames", "3",
+                            "--output", out])
+    assert devices == [torch.device("cuda:0")]
+    assert np.isfinite(ate) and os.path.exists(os.path.join(out, "trajectory.tum"))
+
+
 def test_no_device_means_cuda_or_an_error():
     """`VioPipeline` and `SlidingWindowEstimator` built without a device run
     on the first CUDA device; where there is none they raise and do not
