@@ -59,7 +59,7 @@
    verification's mutual match must equal the plain version's, and the
    fused kernel must have been launched from the sites "vocab" and
    "reloc";
-7b. the dataset app: the port's `generate` writes the first 30 frames of
+7b. the dataset app: the port's `generate` writes the first 20 frames of
    that circuit (752x480 PNGs, 200 Hz IMU, ground truth) in the EuRoC
    layout under build/app_phase/, with an okvis2.yaml-schema config; the
    first and last frames read back through `EurocDataset` must equal
@@ -71,6 +71,19 @@
    and the fused kernel must have been launched from the association and the
    vocabulary descent; it prints the frame times, the peak memory and the
    launches by site;
+7c. GNSS and online calibration through the app: `generate` writes the first
+   40 frames (2.0 s) of the flagship circuit (752x480, 20 Hz) with its 5 Hz
+   gps0/ stream (a frame yawed 0.4 rad and moved (30, -12, 4) m from the
+   world, 5 cm noise) under build/gnss_phase/, with an okvis2.yaml-schema
+   config that turns on `online_calibration` (window and final BA);
+   `okvis2x_app.main` runs `--mode slam --reader xdataset` on cuda:0: the
+   GNSS status must reach "Initialised", a window solve must have carried a
+   GNSS row, the online and final ATE must be at most 0.25 m, and the T_GW
+   errors and the global ATE (the trajectory mapped into the GNSS frame
+   through the recovered T_GW, against the true G-frame ground truth) at
+   most twice the JAX app's on the same frames (floors 1 degree, 0.05 m);
+   it prints the status by frame, how far T_SC moved, the frame, solve,
+   alignment and final-BA times, the peak memory and the launches by site;
 8. asynchronous loop closure on the same frames: the flagship configuration
    of tools/slam_bench.py without its deferred frontend (place recognition
    on the worker thread, the background optimisation of the history,
@@ -155,8 +168,27 @@ MS_OFFSET = (1.5, 0.1)
 MS_POS_TOL_M, MS_ROT_TOL_RAD = 0.2, 0.05
 # the app phase: this many frames of the 0.8 m circuit written as a dataset
 # (the app runs the JAX app's estimator, 10 LM iterations without early
-# exit: about 2.5 s a frame on the card; 30 frames keep the phase near 90 s)
-APP_FRAMES = 30
+# exit: 2.3-3 s a frame on the card; 20 frames keep the phase under a
+# minute and, with the GNSS phase after it, the script under about 1100 s)
+APP_FRAMES = 20
+# the GNSS phase: the first 40 frames (2.0 s) of the flagship circuit with a
+# 5 Hz GNSS stream in a frame yawed by 0.4 rad and moved by (30, -12, 4) m, as
+# tools/gnss_scale_run.py writes it, and online extrinsics calibration on
+GNSS_FRAMES = 40
+GNSS_DATA = dict(frame_rate=20.0, imu_rate=200.0, width=752, height=480, fx=460.0,
+                 density=22.0, seed=3, scene_version=2, trajectory="circuit", with_gps=True,
+                 gps_rate=5.0, gps_sigma=0.05)
+TRUE_YAW_G = 0.4
+TRUE_T_G = np.array([30.0, -12.0, 4.0])
+# the JAX app on the same 40 frames on the CPU (`python tests/test_torch_gps.py`,
+# PERF.md section 4): the T_GW errors against the generator's alignment, as
+# tools/gnss_scale_run.py measures them (deg, m) and carried into the
+# estimator's world frame (`tgw_error_local`), and the global ATE online and
+# after the final BA (m); the port is held to twice these, with floors of 1
+# degree and 0.05 m
+JAX_GNSS = dict(yaw_deg=93.67248111729839, t_m=7.995224279562299,
+                local_yaw_deg=0.3456513441217758, local_t_m=0.1327722035961494,
+                ate_global_online_m=0.12722267514048136, ate_global_final_m=0.11034815065354234)
 COMPARE_EVERY = 16  # flagship frames between two holds of the kernel against its plain version
 PCG_NODES = (300, 1000)
 PCG_ITERATIONS = 15  # PipelineConfig.full_graph_iterations
@@ -1135,9 +1167,12 @@ def multisession_phase(dev, card, vio_a, seq):
     return sites
 
 
-def app_config(path, seq):
-    """An okvis2.yaml-schema config for the rendered rig, as the reference's
-    files are written: the %YAML header, one flow mapping a camera."""
+def app_config(path, seq, online_calibration=False):
+    """An okvis2.yaml-schema config for the rendered rig (`seq.camera`, a dict
+    of the intrinsics, and `seq.T_SC`), as the reference's files are written:
+    the %YAML header, one flow mapping a camera; with `online_calibration`
+    the extrinsics are estimated in the window and in the final BA, at the
+    default sigmas."""
     c = seq.camera
     cams = []
     for T in seq.T_SC:
@@ -1153,9 +1188,14 @@ def app_config(path, seq):
         principal_point: [{c['cx']!r}, {c['cy']!r}],
         camera_type: gray, # gray, rgb, gray+depth, rgb+depth
         slam_use: okvis}}""")
+    calib = """
+camera_parameters:
+    online_calibration:
+        do_extrinsics: true
+        do_extrinsics_final_ba: true
+""" if online_calibration else ""
     with open(path, "w") as f:
-        f.write("%YAML:1.0\ncameras:\n" + "\n".join(cams) + """
-
+        f.write("%YAML:1.0\ncameras:\n" + "\n".join(cams) + "\n" + calib + """
 imu_parameters:
     use: true
     sigma_g_c: 12.0e-4 # gyro noise density [rad/s/sqrt(Hz)]
@@ -1288,6 +1328,272 @@ def app_phase(dev, card):
     return sites
 
 
+def gnss_dataset(root, n_frames, **overrides):
+    """Write the GNSS phase's dataset (GNSS_DATA, `overrides` applied) for
+    `n_frames` frames under `root`/dataset in the extended EuRoC layout with
+    its gps0/ stream, and an okvis2.yaml-schema config with online
+    extrinsics calibration; returns (dataset dir, config path, true T_SC)."""
+    import os
+    import shutil
+
+    from okvis2x_tpu_torch.io import synthetic
+
+    shutil.rmtree(root, ignore_errors=True)
+    kw = GNSS_DATA | overrides
+    ds_dir = os.path.join(root, "dataset")
+    cam, T_SC, _ = synthetic.generate(ds_dir, duration=0.3 + n_frames / kw["frame_rate"], **kw)
+    fx, fy, cx, cy = (float(v) for v in cam.fxfycxcy)
+    rig = types.SimpleNamespace(
+        camera=dict(width=cam.width, height=cam.height, fx=fx, fy=fy, cx=cx, cy=cy,
+                    dist_params=[float(v) for v in cam.dist_params]),
+        T_SC=T_SC)
+    cfg = os.path.join(root, "okvis2.yaml")
+    app_config(cfg, rig, online_calibration=True)
+    return ds_dir, cfg, np.asarray(T_SC, np.float64)
+
+
+class GnssRecorder:
+    """Wraps a `VioPipeline` class's `process_frame` (the JAX package's or the
+    port's) while an app runs: the pipeline, each frame's wall time (to the
+    end of its device work), and after each frame the GNSS status, T_GW and
+    T_SC; also the host time of the estimator's GNSS alignments and of its
+    final BA."""
+
+    def __init__(self, pipeline_cls, estimator_cls):
+        self.classes = (pipeline_cls, estimator_cls)
+        self.pipe = None
+        self.wall, self.status, self.T_GW, self.T_SC = [], [], [], []
+        self.align_s, self.n_align, self.final_ba_s = 0.0, 0, 0.0
+
+    def __enter__(self):
+        pipeline_cls, estimator_cls = self.classes
+        self.saved = (pipeline_cls.process_frame, estimator_cls._attempt_gps_alignment,
+                      estimator_cls.final_ba)
+        process_frame, align, final_ba = self.saved
+        rec = self
+
+        def frame(pipe, *args, **kwargs):
+            t = time.perf_counter()
+            info = process_frame(pipe, *args, **kwargs)
+            if getattr(pipe, "device", None) is not None and pipe.device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(pipe.device)
+            rec.wall.append(time.perf_counter() - t)
+            rec.pipe = rec.pipe or pipe
+            rec.status.append(pipe.est.gps_status)
+            rec.T_GW.append(np.array(pipe.est.T_GW, np.float64))
+            rec.T_SC.append(np.array(pipe.est.T_SC, np.float64))
+            return info
+
+        def timed_align(est):
+            t = time.perf_counter()
+            align(est)
+            rec.align_s += time.perf_counter() - t
+            rec.n_align += 1
+
+        def timed_final_ba(est, *args, **kwargs):
+            t = time.perf_counter()
+            out = final_ba(est, *args, **kwargs)
+            rec.final_ba_s += time.perf_counter() - t
+            return out
+
+        pipeline_cls.process_frame = frame
+        estimator_cls._attempt_gps_alignment = timed_align
+        estimator_cls.final_ba = timed_final_ba
+        return self
+
+    def __exit__(self, *exc):
+        pipeline_cls, estimator_cls = self.classes
+        (pipeline_cls.process_frame, estimator_cls._attempt_gps_alignment,
+         estimator_cls.final_ba) = self.saved
+
+    def transitions(self):
+        """[(frame index, status)] wherever the status changed."""
+        out, last = [], "Off"
+        for k, st in enumerate(self.status):
+            if st != last:
+                out.append((k, st))
+                last = st
+        return out
+
+
+def tgw_error(T_GW):
+    """(yaw error in degrees, translation error in m) of a T_GW against the
+    generator's alignment."""
+    yaw = 2 * np.arctan2(T_GW[5], T_GW[6])
+    dyaw = abs((yaw - TRUE_YAW_G + np.pi) % (2 * np.pi) - np.pi)
+    return float(np.degrees(dyaw)), float(np.linalg.norm(np.asarray(T_GW[:3]) - TRUE_T_G))
+
+
+def _yaw(q):
+    from okvis2x_tpu_torch.core import se3np
+
+    R = se3np.quat_to_matrix(q)
+    return float(np.arctan2(R[1, 0], R[0, 0]))
+
+
+def tgw_error_local(T_GW, ts, Ts, gt):
+    """`tgw_error` against the generator's alignment carried into the
+    estimator's world frame.  The estimator's W is its first state's (at the
+    origin, yaw 0) and the ground truth's is the circuit's, so `tgw_error`
+    also measures the offset between the two; here the true T_GW is composed
+    with the 4-dof transform that takes the first frame's estimated pose onto
+    its true pose.  Returns (yaw error in degrees, translation error in m)."""
+    from okvis2x_tpu_torch.core import se3np
+    from okvis2x_tpu_torch.io import trajectory_io
+
+    _, ib = trajectory_io.associate(ts[:1], gt[:, 0])
+    g0 = gt[ib[0]]
+    q = se3np.delta_q(np.array([0.0, 0.0, _yaw(g0[4:8]) - _yaw(Ts[0, 3:7])]))
+    T_local = np.concatenate([g0[1:4] - se3np.quat_rotate(q, Ts[0, :3]), q])
+    true = se3np.se3_multiply(np.concatenate([TRUE_T_G, se3np.delta_q(
+        np.array([0.0, 0.0, TRUE_YAW_G]))]), T_local)
+    dyaw = abs((_yaw(T_GW[3:7]) - _yaw(true[3:7]) + np.pi) % (2 * np.pi) - np.pi)
+    return float(np.degrees(dyaw)), float(np.linalg.norm(np.asarray(T_GW[:3]) - true[:3]))
+
+
+def ate_global(T_GW, ts, Ts, gt):
+    """The unaligned RMSE of the trajectory mapped into the GNSS frame through
+    `T_GW` against the true G-frame ground truth (`_ate_global` of
+    tools/gnss_scale_run.py): what a GNSS user reads."""
+    from okvis2x_tpu_torch.core import se3np
+    from okvis2x_tpu_torch.io import trajectory_io
+
+    p_G = se3np.se3_apply(np.asarray(T_GW, np.float64), Ts[:, :3])
+    Rg = se3np.quat_to_matrix(se3np.delta_q(np.array([0.0, 0.0, TRUE_YAW_G])))
+    ia, ib = trajectory_io.associate(ts, gt[:, 0])
+    if len(ia) < 3:
+        return float("nan")
+    err = np.linalg.norm(p_G[ia] - (gt[ib, 1:4] @ Rg.T + TRUE_T_G), axis=1)
+    return float(np.sqrt((err ** 2).mean()))
+
+
+def gnss_metrics(rec, ds_dir, out, T_SC_true):
+    """What the GNSS phase checks, from a recorded app run that wrote its
+    trajectories to `out`."""
+    import os
+
+    from okvis2x_tpu_torch.core import se3np
+    from okvis2x_tpu_torch.io import trajectory_io, xdataset
+
+    gt = xdataset.XDataset(ds_dir).ground_truth
+    ts, Ts = trajectory_io.read_tum(os.path.join(out, "trajectory.tum"))
+    fts, fTs = trajectory_io.read_tum(os.path.join(out, "final_trajectory.tum"))
+    T_GW = np.asarray(rec.pipe.est.T_GW, np.float64)
+    T_SC = np.asarray(rec.pipe.est.T_SC, np.float64)
+    yaw_deg, t_m = tgw_error(T_GW)
+    local_yaw_deg, local_t_m = tgw_error_local(T_GW, ts, Ts, gt)
+    dq = [se3np.quat_multiply(se3np.quat_conjugate(a[3:7]), b[3:7])
+          for a, b in zip(T_SC, T_SC_true)]
+    return dict(
+        transitions=rec.transitions(), status=rec.status[-1], T_GW=T_GW.tolist(),
+        yaw_deg=yaw_deg, t_m=t_m, local_yaw_deg=local_yaw_deg, local_t_m=local_t_m,
+        ate_online_m=float(trajectory_io.ate_rmse(ts, Ts[:, :3], gt[:, 0], gt[:, 1:4])),
+        ate_final_m=float(trajectory_io.ate_rmse(fts, fTs[:, :3], gt[:, 0], gt[:, 1:4])),
+        ate_global_online_m=ate_global(T_GW, ts, Ts, gt),
+        ate_global_final_m=ate_global(T_GW, fts, fTs, gt),
+        T_SC_moved_m=float(np.linalg.norm(T_SC[:, :3] - T_SC_true[:, :3], axis=1).max()),
+        T_SC_moved_rad=float(max(np.linalg.norm(se3np.quat_log(q)) for q in dq)),
+        n_frames=len(ts), n_final=len(fts), n_align=rec.n_align, align_ms=rec.align_s * 1e3,
+        final_ba_s=rec.final_ba_s,
+    )
+
+
+def gnss_bound(what, jax_value, floor):
+    """Twice the JAX app's value on the same frames, or `floor` if larger."""
+    if jax_value is None:
+        raise RuntimeError(f"no JAX reference value for {what}")
+    return max(2.0 * jax_value, floor)
+
+
+def gnss_phase(dev, card):
+    """The port's app in slam mode, as a user runs it, on a GNSS dataset with
+    online extrinsics calibration: GNSS_FRAMES frames of the flagship circuit
+    written with its gps0/ stream under build/gnss_phase/ (`gnss_dataset`),
+    `okvis2x_app.main(--mode slam --reader xdataset)` on the default device
+    (cuda:0) or on `dev` when that is the CPU.  Checks that the GNSS status
+    reaches "Initialised", that at least one window solve carried a GNSS
+    row, the online and final ATE, the T_GW errors and the global ATE
+    against the JAX app's on the same frames (JAX_GNSS); prints how far T_SC
+    moved, the frame times, the solve, alignment and final-BA times and the
+    peak memory.  Returns the fused kernel's launches by site."""
+    import os
+
+    import torch
+    from okvis2x_tpu_torch.apps import okvis2x_app
+    from okvis2x_tpu_torch.graph.estimator import SlidingWindowEstimator
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
+    from okvis2x_tpu_torch.utils import timing
+
+    what = "GNSS"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "gnss_phase")
+    t0 = time.perf_counter()
+    ds_dir, cfg, T_SC_true = gnss_dataset(root, GNSS_FRAMES)
+    t_data = time.perf_counter() - t0
+    out = os.path.join(root, "out")
+    argv = ["--dataset", ds_dir, "--config", cfg, "--mode", "slam", "--reader", "xdataset",
+            "--output", out, "--max-frames", str(GNSS_FRAMES)]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    else:
+        torch.cuda.reset_peak_memory_stats(dev)
+    timing.reset()
+    hamming.reset_launch_counts()
+    t0 = time.perf_counter()
+    with GnssRecorder(VioPipeline, SlidingWindowEstimator) as rec:
+        okvis2x_app.main(argv)
+    t_run = time.perf_counter() - t0
+    sites = dict(hamming.hamming_match.site_launches)
+    ERRORS.check(what)
+    vio = rec.pipe
+    if vio.device != dev:
+        raise RuntimeError(f"{what}: the app ran on {vio.device}, not {dev}")
+    m = gnss_metrics(rec, ds_dir, out, T_SC_true)
+    if m["n_frames"] != GNSS_FRAMES:
+        raise RuntimeError(f"{what}: trajectory.tum has {m['n_frames']} rows for {GNSS_FRAMES}")
+    if "Initialised" not in rec.status or m["status"] != "Initialised":
+        raise RuntimeError(f"{what}: the GNSS status went {m['transitions']}, not to Initialised")
+    if vio.est.n_gps_solves < 1:
+        raise RuntimeError(f"{what}: no window solve carried a GNSS row")
+    for k in ("ate_online_m", "ate_final_m"):
+        if not m[k] <= ATE_LIMIT_M:
+            raise RuntimeError(f"{what}: {k} {m[k]} exceeds {ATE_LIMIT_M} m")
+    bounds = {k: gnss_bound(k, JAX_GNSS[k], 1.0 if k.endswith("deg") else 0.05)
+              for k in JAX_GNSS}
+    for k, b in bounds.items():
+        if not m[k] <= b:
+            raise RuntimeError(f"{what}: {k} {m[k]} exceeds {b} (twice the JAX app's "
+                               f"{JAX_GNSS[k]}, floor applied)")
+    if dev.type == "cuda" and (sites.get("assoc", 0) <= 0 or sites.get("bow", 0) <= 0):
+        raise RuntimeError(f"{what}: the fused kernel's launches by site {sites} lack the "
+                           "association or the vocabulary descent")
+    ms = np.asarray(rec.wall) * 1e3
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB" if dev.type == "cuda"
+            else "not measured")
+    print(f"{what}: dataset of {GNSS_FRAMES} frames with gps0/ written in {t_data:.1f} s; "
+          f"okvis2x_app --mode slam, online calibration, on {vio.device}: {t_run:.1f} s; "
+          f"status by frame {m['transitions']}, {vio.est.n_gps_solves} solves with a GNSS row, "
+          f"{m['n_align']} alignment attempts ({m['align_ms']:.3f} ms of host time in all); "
+          f"T_GW {np.round(m['T_GW'], 4).tolist()}, error against the generator's yaw "
+          f"{m['yaw_deg']:.4f} deg (bound {bounds['yaw_deg']:.4f}), translation {m['t_m']:.4f} m "
+          f"(bound {bounds['t_m']:.4f}), in the estimator's world frame yaw "
+          f"{m['local_yaw_deg']:.4f} deg (bound {bounds['local_yaw_deg']:.4f}), translation "
+          f"{m['local_t_m']:.4f} m (bound {bounds['local_t_m']:.4f}); global ATE online "
+          f"{m['ate_global_online_m']:.4f} m (bound {bounds['ate_global_online_m']:.4f}), final "
+          f"{m['ate_global_final_m']:.4f} m (bound {bounds['ate_global_final_m']:.4f}); ATE "
+          f"online {m['ate_online_m']:.4f} m, final {m['ate_final_m']:.4f} m over {m['n_final']} "
+          f"states; T_SC moved {m['T_SC_moved_m'] * 1e3:.3f} mm / {m['T_SC_moved_rad']:.6f} rad; "
+          f"ms/frame p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max "
+          f"{ms.max():.1f}; window solve (2.5 CollectSolve) mean "
+          f"{timing.mean_ms('2.5 CollectSolve'):.2f} ms, 3.1 BuildProblem "
+          f"{timing.mean_ms('3.1 BuildProblem'):.2f} ms; final BA with extrinsics "
+          f"{m['final_ba_s']:.2f} s; peak allocated {peak}; fused match launches by site "
+          f"{sites} ({card})")
+    return sites
+
+
 def drifted_circle(K, rng, radius=5.0):
     """K keyframes on a circle with drifting estimates, noisy odometry edges
     to the next two keyframes and loop edges from the last quarter to the
@@ -1386,14 +1692,15 @@ def main() -> int:
         cpu_flagship = pool.submit(flagship_cpu_positions)
         cpu_solves = pool.submit(pcg_cpu_solves)
         t0 = time.perf_counter()
-        match_sites = {}
+        match_sites, phase_sites = {}, {}
 
-        def add_sites(sites):
+        def add_sites(sites, phase):
+            phase_sites[phase] = dict(sites)
             for k, n in sites.items():
                 match_sites[k] = match_sites.get(k, 0) + n
 
         sites, on_matrix = vio_phase(dev, card, cpu_positions)
-        add_sites(sites)
+        add_sites(sites, "vio")
         print(f"VIO phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         seq = render(max(LC_FRAMES.values()), **SMALL_CIRCUIT)
@@ -1402,27 +1709,31 @@ def main() -> int:
         for mode in LC_PIPES:
             t0 = time.perf_counter()
             sites, vio = loop_closure_phase(dev, card, mode, seq, cpu_flagship)
-            add_sites(sites)
+            add_sites(sites, mode)
             print(f"{mode} loop-closure phase: {time.perf_counter() - t0:.1f} s")
             if mode == "synchronous":
                 t0 = time.perf_counter()
-                add_sites(multisession_phase(dev, card, vio, seq))
+                add_sites(multisession_phase(dev, card, vio, seq), "multi-session")
                 print(f"multi-session phase: {time.perf_counter() - t0:.1f} s")
                 t0 = time.perf_counter()
-                add_sites(app_phase(dev, card))
+                add_sites(app_phase(dev, card), "app")
                 print(f"app phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
+                add_sites(gnss_phase(dev, card), "gnss")
+                print(f"GNSS phase: {time.perf_counter() - t0:.1f} s")
             del vio
         t0 = time.perf_counter()
         pcg_phase(dev, card, cpu_solves)
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
-    # times at 704x1024, the map matching's shape; launches over phases 4-9
-    # and the app phase
+    # times at 704x1024, the map matching's shape; launches over phases 4-9,
+    # the app phase and the GNSS phase
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",
          "replaces": "okvis2x_tpu/ops/hamming_pallas.py:67",
          "launches": sum(match_sites.values()), "site_launches": match_sites,
+         "phase_site_launches": phase_sites,
          **entries["match"]},
         {"name": "hamming_matrix_packed", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming.cu",

@@ -43,8 +43,10 @@ and the final BA; a vocabulary trained online when there is no vocabulary
 file, and multi-session maps (save and load a session, relocalise against
 it, export the map); the dataset app ``apps/okvis2x_app.py`` (vio and slam
 modes on EuRoC-layout datasets with okvis2.yaml-schema configs, the
-recorder, the debug CSVs) with its own PNG codec and YAML reader.  Semantic
-weighting, GNSS, depth, LiDAR, submaps, the learned models, ROS2 and the
+recorder, the debug CSVs, GNSS streams) with its own PNG codec and YAML
+reader; GNSS fusion (the 4-dof alignment and its status machine, the
+asynchronous position rows) and online extrinsics calibration.  Semantic
+weighting, depth, LiDAR, submaps, the learned models, ROS2 and the
 multi-device ``parallel/`` solvers are not ported yet.
 
 The entry points run on the first CUDA device unless the caller names

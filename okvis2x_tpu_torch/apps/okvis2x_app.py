@@ -16,8 +16,10 @@ Usage:
   python -m okvis2x_tpu_torch.apps.okvis2x_app --synthetic-test --mode slam --output out/
   python -m okvis2x_tpu_torch.apps.okvis2x_app --record DIR --dataset SRC
 
-As in the JAX app, only the estimator fields of the config reach the
-pipeline (`EstimatorConfig`); its frontend section is read but unused, and
+A dataset's GNSS fixes (``gps0/`` in the extended layout) go to the
+estimator.  As in the JAX app, only the estimator fields of the config
+(with the online calibration switches and sigmas) reach the pipeline
+(`EstimatorConfig`); its frontend section is read but unused, and
 `PipelineConfig` takes the package defaults plus the mode's loop-closure
 switches.
 """
@@ -155,7 +157,6 @@ def main(argv=None):
         gt = ds.ground_truth
 
     if vi is not None:
-        # the extrinsics priors' sigmas come with online extrinsics (A2)
         oc = vi.camera.online_calibration
         est_cfg = EstimatorConfig(
             num_keyframes=vi.estimator.num_keyframes,
@@ -164,6 +165,10 @@ def main(argv=None):
             imu=vi.imu,
             do_extrinsics=oc.do_extrinsics,
             do_extrinsics_final_ba=oc.do_extrinsics_final_ba,
+            extrinsics_sigma_r=oc.sigma_r,
+            extrinsics_sigma_alpha=oc.sigma_alpha,
+            extrinsics_sigma_r_final_ba=oc.sigma_r_final_ba,
+            extrinsics_sigma_alpha_final_ba=oc.sigma_alpha_final_ba,
         )
     else:
         est_cfg = EstimatorConfig()
@@ -184,7 +189,7 @@ def main(argv=None):
             vio.add_imu_measurement(*data)
             continue
         if kind == "gps":
-            vio.add_gps_measurement(*data)  # raises: GNSS is not ported (A3)
+            vio.add_gps_measurement(*data)
             continue
         if kind != "frames" or not data.paths[0]:
             continue  # depth and LiDAR streams feed only the unported modes

@@ -166,14 +166,23 @@ def estimator_state(src, dst: SlidingWindowEstimator) -> SlidingWindowEstimator:
     the converted config, cameras and extrinsics): window and archived
     frames and edges, live and archived observations and landmarks, both
     IMU buffers, the chained IMU links, the priors, the held loop-closure
-    frames and the correction epoch; the frames and edges of loaded map
-    components (negative frame ids) come along with the archive.  Depth
-    priors and GNSS are not ported and must be absent."""
+    frames, the correction epoch, the extrinsics and their calibration
+    prior, and the GNSS state (status, fixes, T_GW, antenna offset); the
+    frames and edges of loaded map components (negative frame ids) come
+    along with the archive.  Depth priors are not ported and must be
+    absent."""
     if np.any(np.asarray(src.obs_depth_sigma) > 0) or np.any(
             np.asarray(src.arch_obs_depth_sigma) > 0):
         raise NotImplementedError("depth priors are not ported yet")
-    if src.gps_status != "Off":
-        raise NotImplementedError("GNSS is not ported yet")
+    dst.T_SC = np.array(src.T_SC, np.float64)
+    dst.T_SC_prior = np.array(src.T_SC_prior, np.float64)
+    dst.gps_status = str(src.gps_status)
+    dst.gps_meas = [(float(t), np.array(pg, np.float64), np.array(err, np.float64))
+                    for t, pg, err in src.gps_meas]
+    dst.T_GW = np.array(src.T_GW, np.float64)
+    dst.gps_r_SA = np.array(src.gps_r_SA, np.float64)
+    for k in ("gps_min_fixes", "gps_min_span", "gps_timeout"):
+        setattr(dst, k, getattr(src, k))
     dst.frames = [_frame(f) for f in src.frames]
     dst.archive_frames = {int(k): _frame(f) for k, f in src.archive_frames.items()}
     dst.rel_edges = [_edge(e) for e in src.rel_edges]

@@ -28,9 +28,19 @@ merges landmarks, and solves the pose graph in line (`close_loop`).
 re-propagated IMU links, or into a pose graph plus overlapping segments
 beyond `max_nodes` keyframes.
 
-GNSS, online extrinsics, live submap-ICP rows and depth priors are not part
-of the port yet; the options that would enable them raise
-``NotImplementedError``.
+GNSS fusion: fixes arrive through `add_gps_measurement`; once enough of them
+pair with estimated positions over at least 1 m of horizontal motion, the
+4-dof world-to-GNSS alignment T_GW is estimated in closed form
+("Initialised"), and the window solve then carries the newest fixes as
+asynchronous position rows (host frame, IMU bridge to the fix time) with
+T_GW free.  A gap of more than 2 s between fixes holds T_GW ("ReInitialising")
+until the fixes return and it is realigned.  As in the JAX package, the final
+BA and the background full graph carry no GNSS rows.  Online extrinsics
+calibration (`do_extrinsics`, `do_extrinsics_final_ba`) frees T_SC under a
+prior around the initial calibration.
+
+Live submap-ICP rows and depth priors are not part of the port yet; the
+option that would enable ICP raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ class EstimatorConfig:
     imu_bias_redo_a: float = 0.05  # [m/s^2]
     imu_redo_max_samples: int = 4096
     cap_rel_edges: int = 16
+    cap_gps: int = 8
     cap_icp: int = 0
     keypoint_sigma_px: float = 0.8
     max_iterations: int = 10
@@ -85,8 +96,14 @@ class EstimatorConfig:
     early_exit_rel: float = 0.0
     imu: pre.ImuParams = pre.ImuParams()
     dtype: torch.dtype = torch.float64
+    # online extrinsics calibration: T_SC free under a pose prior of these
+    # stdevs around the initial calibration (the window's, the final BA's)
     do_extrinsics: bool = False
     do_extrinsics_final_ba: bool = False
+    extrinsics_sigma_r: float = 0.001  # [m]
+    extrinsics_sigma_alpha: float = 0.005  # [rad]
+    extrinsics_sigma_r_final_ba: float = 0.001
+    extrinsics_sigma_alpha_final_ba: float = 0.005
     init_pos_sigma: float = 1e-4
     init_yaw_sigma: float = 1e-4
     init_rollpitch_sigma: float = 0.03
@@ -122,8 +139,6 @@ class SlidingWindowEstimator:
     def __init__(self, config: EstimatorConfig, cameras, T_SC: np.ndarray, device=None):
         """`device` None is the first CUDA device; without one this raises
         (pass device="cpu" to run on the CPU)."""
-        if config.do_extrinsics or config.do_extrinsics_final_ba:
-            raise NotImplementedError("online extrinsics calibration is not ported yet")
         if config.cap_icp:
             raise NotImplementedError("live submap ICP factors are not ported yet")
         self.cfg = config
@@ -131,6 +146,8 @@ class SlidingWindowEstimator:
         self.cams = gn.stack_cameras(cameras).to(self.device, config.dtype)
         self.T_SC = np.asarray(T_SC, dtype=np.float64)  # (C, 7)
         self.C = self.T_SC.shape[0]
+        # the online-calibration prior is anchored at the initial calibration
+        self.T_SC_prior = self.T_SC.copy()
 
         self.frames: List[FrameState] = []
         self._next_fid = 0
@@ -195,6 +212,19 @@ class SlidingWindowEstimator:
         self._arch_obs_f = np.zeros((1024, 3))  # uv(2), sigma
         self._arch_obs_n = 0
         self.arch_lm: Dict[int, np.ndarray] = {}
+
+        # GNSS status machine: "Off" until the first fix, "Idle" until the
+        # alignment succeeds, then "Initialised"; "ReInitialising" while the
+        # fixes are out for longer than gps_timeout (T_GW held)
+        self.gps_status = "Off"
+        self.gps_meas: List[tuple] = []  # (t, pos_G (3,), err (3,))
+        self.T_GW = np.array([0, 0, 0, 0, 0, 0, 1.0])
+        self.gps_r_SA = np.zeros(3)  # antenna position in S
+        self.gps_min_fixes = 6
+        self.gps_min_span = 1.0  # [m] horizontal extent before alignment
+        self.gps_timeout = 2.0  # [s]
+        # window solves built with at least one valid GNSS row
+        self.n_gps_solves = 0
 
         # priors on the first state
         self.prior_fid: Optional[int] = None
@@ -493,6 +523,100 @@ class SlidingWindowEstimator:
             W[m] = w
         return out, W
 
+    # ------------------------------------------------------------------ gps
+    def add_gps_measurement(self, t: float, pos_G, err):
+        """A position fix `pos_G` (3,) in the GNSS frame at time `t` with
+        per-axis stdevs `err` (3,); the first fix switches GNSS on."""
+        self.gps_meas.append((float(t), np.asarray(pos_G, float), np.asarray(err, float)))
+        if self.gps_status == "Off":
+            self.gps_status = "Idle"
+        if self.gps_status == "Idle":
+            self._attempt_gps_alignment()
+
+    def _gps_state_pos(self, t: float) -> Optional[np.ndarray]:
+        """Estimated position at time t, interpolated between the archived
+        and window frames around it; None more than 0.2 s outside them."""
+        frames = sorted(list(self.archive_frames.values()) + self.frames,
+                        key=lambda f: f.timestamp)
+        if not frames or t < frames[0].timestamp - 0.2 or t > frames[-1].timestamp + 0.2:
+            return None
+        ts = np.array([f.timestamp for f in frames])
+        i = int(np.clip(np.searchsorted(ts, t), 1, len(ts) - 1))
+        a, b = frames[i - 1], frames[i]
+        dt = max(b.timestamp - a.timestamp, 1e-9)
+        w = np.clip((t - a.timestamp) / dt, 0.0, 1.0)
+        return (1 - w) * a.T_WS[:3] + w * b.T_WS[:3]
+
+    def _attempt_gps_alignment(self):
+        """Closed-form yaw + translation fit of T_GW over the (estimated
+        position, fix) pairs; needs gps_min_fixes pairs spread over
+        gps_min_span of horizontal motion (yaw is unobservable without)."""
+        pairs = []
+        for t, pg, _ in self.gps_meas:
+            pw = self._gps_state_pos(t)
+            if pw is not None:
+                pairs.append((pw, pg))
+        if len(pairs) < self.gps_min_fixes:
+            return
+        PW = np.stack([q[0] for q in pairs])
+        PG = np.stack([q[1] for q in pairs])
+        if np.ptp(PW, axis=0)[:2].max() < self.gps_min_span:
+            return
+        # yaw maximising sum cos(yaw) (x.x' + y.y') + sin(yaw) (x.y' - y.x')
+        cw = PW - PW.mean(0)
+        cg = PG - PG.mean(0)
+        a = float(np.sum(cw[:, 0] * cg[:, 0] + cw[:, 1] * cg[:, 1]))
+        b = float(np.sum(cw[:, 0] * cg[:, 1] - cw[:, 1] * cg[:, 0]))
+        q = se3np.delta_q(np.array([0.0, 0.0, np.arctan2(b, a)]))
+        tr = PG.mean(0) - se3np.quat_to_matrix(q) @ PW.mean(0)
+        self.T_GW = np.concatenate([tr, q])
+        self.gps_status = "Initialised"
+
+    def _check_gps_dropout(self, t_now: float):
+        """Before each window solve: an Initialised alignment whose newest
+        fix is older than gps_timeout is held (ReInitialising); once fixes
+        are fresh again it is realigned."""
+        if self.gps_status == "Initialised" and self.gps_meas:
+            if t_now - self.gps_meas[-1][0] > self.gps_timeout:
+                self.gps_status = "ReInitialising"
+        elif self.gps_status == "ReInitialising" and self.gps_meas:
+            if t_now - self.gps_meas[-1][0] < self.gps_timeout:
+                self._attempt_gps_alignment()
+
+    def _gps_rows(self, nf: int):
+        """The window's GNSS rows: each of the newest `cap_gps` fixes since
+        the oldest window frame on the newest frame at or before it, with
+        the IMU bridge span from that frame to the fix.  Zero rows while
+        GNSS is off, so a GNSS-free solve carries no GNSS family."""
+        Gcap = self.cfg.cap_gps if self.gps_status != "Off" else 0
+        gps_frame = np.zeros(Gcap, np.int64)
+        gps_p_G = np.zeros((Gcap, 3))
+        gps_si = np.tile(np.eye(3), (Gcap, 1, 1))
+        gps_valid = np.zeros(Gcap, bool)
+        spans = []
+        if self.gps_status in ("Initialised", "ReInitialising") and nf:
+            t_lo = self.frames[0].timestamp
+            for t_g, pos_G, err in [m for m in self.gps_meas if m[0] >= t_lo][-Gcap:]:
+                host = next((i for i in range(nf - 1, -1, -1)
+                             if self.frames[i].timestamp <= t_g + 1e-9), None)
+                if host is None:
+                    continue
+                hf = self.frames[host]
+                g = len(spans)
+                gps_frame[g] = host
+                gps_p_G[g] = pos_G
+                gps_si[g] = np.diag(1.0 / np.maximum(err, 1e-3))
+                gps_valid[g] = True
+                spans.append((hf.timestamp, max(t_g, hf.timestamp), hf.sb[3:6], hf.sb[6:9]))
+        return gps_frame, gps_p_G, gps_si, gps_valid, spans
+
+    def _ext_prior_si(self, final_ba: bool) -> np.ndarray:
+        cfg = self.cfg
+        sr, sa = ((cfg.extrinsics_sigma_r_final_ba, cfg.extrinsics_sigma_alpha_final_ba)
+                  if final_ba else (cfg.extrinsics_sigma_r, cfg.extrinsics_sigma_alpha))
+        return np.diag(np.concatenate([np.full(3, 1.0 / max(sr, 1e-9)),
+                                       np.full(3, 1.0 / max(sa, 1e-9))]))
+
     # ------------------------------------------------------------- landmarks
     def add_landmark(self, hp_W) -> int:
         """New landmark id, or -1 when the capacity table is full."""
@@ -658,11 +782,41 @@ class SlidingWindowEstimator:
                 rel_valid[nrel] = True
                 nrel += 1
 
+        gps_frame, gps_p_G, gps_si, gps_valid, gps_spans = self._gps_rows(nf)
+        Gcap = len(gps_valid)
+        self.n_gps_solves += bool(gps_spans)
+
         dev = self.device
         F = lambda x: torch.as_tensor(x, dtype=cfg.dtype, device=dev)  # noqa: E731
         I = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-        p = prb.empty_problem(K=K, L=L, C=C, N=Ncap, M=Mcap, R=Rcap, G=0,
+        p = prb.empty_problem(K=K, L=L, C=C, N=Ncap, M=Mcap, R=Rcap, G=Gcap,
                               dtype=cfg.dtype, device=dev)
+        if Gcap:
+            p = p._replace(
+                T_GW=F(self.T_GW), tgw_fixed=I(np.asarray(self.gps_status != "Initialised")),
+                gps_frame=I(gps_frame), gps_p_G=F(gps_p_G), gps_r_SA=F(self.gps_r_SA),
+                gps_sqrt_info=F(gps_si), gps_valid=I(gps_valid),
+            )
+        if gps_spans:
+            # the bridges preintegrate on the device, without whitening (rows
+            # without a fix keep the identity: they are masked).  The JAX
+            # package pads each bridge to cap_imu_samples; masked steps are
+            # exact no-ops, so the buffer is fitted to the longest bridge (a
+            # bridge spans at most a frame gap), which gives the same result
+            # with a fraction of the per-sample launches
+            n_max = max(i1 - i0 for i0, i1 in (self._imu_span(t0, t1)
+                                               for t0, t1, _, _ in gps_spans))
+            S = 8
+            while S < min(n_max, cfg.cap_imu_samples):
+                S *= 2
+            gps_pre, _ = self._preintegrate_batch(gps_spans, Gcap, S=min(S, cfg.cap_imu_samples))
+            p = p._replace(gps_pre=gps_pre)
+        if cfg.do_extrinsics:
+            p = p._replace(
+                ext_fixed=I(np.zeros(C, bool)), ext_prior_T=F(self.T_SC_prior),
+                ext_prior_sqrt_info=F(np.tile(self._ext_prior_si(False), (C, 1, 1))),
+                ext_prior_valid=I(np.ones(C, bool)),
+            )
         p = p._replace(
             T_WS=F(T_full), sb=F(sb_full), frame_valid=I(frame_valid),
             pose_fixed=I(pose_fixed), sb_fixed=I(sb_fixed), T_SC=F(self.T_SC),
@@ -684,6 +838,7 @@ class SlidingWindowEstimator:
         return gn.SolverConfig(
             max_iterations=iters, imu_params=self.cfg.imu,
             early_exit_rel=self.cfg.early_exit_rel,
+            use_ext_priors=self.cfg.do_extrinsics,
         )
 
     def _clamp_held(self, fr: FrameState, T_new: np.ndarray) -> np.ndarray:
@@ -695,6 +850,14 @@ class SlidingWindowEstimator:
             return np.asarray(fr.pre_hold_T, np.float64).copy()
         return T_new
 
+    def _writeback_calibration(self, p_opt):
+        """The calibrated extrinsics (online calibration) and the GNSS
+        alignment (while Initialised) of a solved window."""
+        if self.cfg.do_extrinsics:
+            self.T_SC = p_opt.T_SC.cpu().numpy().astype(np.float64)
+        if self.gps_status == "Initialised":
+            self.T_GW = p_opt.T_GW.cpu().numpy().astype(np.float64)
+
     def _writeback(self, p_opt, fid2slot):
         T = p_opt.T_WS.cpu().numpy().astype(np.float64)
         sb = p_opt.sb.cpu().numpy().astype(np.float64)
@@ -704,6 +867,7 @@ class SlidingWindowEstimator:
             fr.T_WS = self._clamp_held(fr, T[slot])
             fr.sb = sb[slot]
         self.hp_W = hp[: len(self.lm_ids)]
+        self._writeback_calibration(p_opt)
 
     def optimise(self, iterations: Optional[int] = None, pose_only: bool = False) -> float:
         """Ungated window solve with writeback (after a loop closure; with
@@ -711,6 +875,8 @@ class SlidingWindowEstimator:
         window solve: landmarks held, poses and speed/bias free); returns
         the final cost."""
         iters = iterations or self.cfg.max_iterations
+        if self.frames:
+            self._check_gps_dropout(self.frames[-1].timestamp)
         with timing.Timer("3.1 BuildProblem"):
             p, fid2slot, _ = self._build_problem()
         cfg = self._solver_config(iters)._replace(estimate_landmarks=not pose_only)
@@ -734,6 +900,8 @@ class SlidingWindowEstimator:
         (association does): the writeback goes by frame id, landmark id and
         observation uid."""
         iters = iterations or self._rt_iters
+        if self.frames:
+            self._check_gps_dropout(self.frames[-1].timestamp)
         with timing.Timer("3.1 BuildProblem"):
             p, fid2slot, obs_uids = self._build_problem()
         return dict(p=p, fid2slot=fid2slot, obs_uids=obs_uids, fid=fid, gate_px=float(gate_px),
@@ -779,6 +947,7 @@ class SlidingWindowEstimator:
                 tgt = np.array([self.lm_index.get(int(lid), -1) for lid in snap], np.int64)
                 ok = tgt >= 0
                 self.hp_W[tgt[ok]] = hp[:len(snap)][ok]
+            self._writeback_calibration(p3)
         obs_uids = h["obs_uids"]
         if len(out_rows):
             # outliers by uid: row indices shift, uids do not
@@ -1474,7 +1643,9 @@ class SlidingWindowEstimator:
         IMU links between consecutive keyframes re-propagated from the raw
         samples at the current biases.  `node_slice=(i0, i1)` restricts it
         to a node range whose first and last `fix_margin` nodes are held
-        fixed.  Returns (problem, aux) or None.
+        fixed.  With `do_extrinsics_final_ba` the extrinsics are free under
+        the final BA's prior.  As in the JAX package, it has no GNSS rows.
+        Returns (problem, aux) or None.
 
         Capacities are padded as the JAX package pads them (K to a power of
         two from 16, L from 64, N from 256, R from 16, M from 8), so the
@@ -1647,12 +1818,23 @@ class SlidingWindowEstimator:
             rel_i=I(r_i), rel_j=I(r_j), rel_T=F(r_T), rel_sqrt_info=F(r_si),
             rel_valid=I(r_valid),
         )
-        aux = dict(fid2slot=fid2slot, lid2row=lid2row, fids=[f.fid for f in nodes])
+        do_ext = self.cfg.do_extrinsics_final_ba
+        if do_ext:
+            C = self.C
+            p = p._replace(
+                ext_fixed=I(np.zeros(C, bool)), ext_prior_T=F(self.T_SC_prior),
+                ext_prior_sqrt_info=F(np.tile(self._ext_prior_si(True), (C, 1, 1))),
+                ext_prior_valid=I(np.ones(C, bool)),
+            )
+        aux = dict(fid2slot=fid2slot, lid2row=lid2row, fids=[f.fid for f in nodes],
+                   do_ext=do_ext)
         return p, aux
 
-    def _full_ba_run_fn(self, p, iterations: int):
-        """The whole-history LM solve of a `_full_problem`: (problem, cost)."""
-        cfg = gn.SolverConfig(max_iterations=iterations, imu_params=self.cfg.imu)
+    def _full_ba_run_fn(self, p, iterations: int, do_ext: bool = False):
+        """The whole-history LM solve of a `_full_problem` (`do_ext`: its
+        aux's, the extrinsics prior rows): (problem, cost)."""
+        cfg = gn.SolverConfig(max_iterations=iterations, imu_params=self.cfg.imu,
+                              use_ext_priors=do_ext)
         return gn.optimize(p, self.cams, cfg)
 
     def apply_full_ba_result(self, aux, p_opt, backlog: bool = True) -> bool:
@@ -1678,6 +1860,8 @@ class SlidingWindowEstimator:
                 self.hp_W[self.lm_index[lid]] = hp_out[row]
             else:
                 self.arch_lm[lid] = hp_out[row]
+        if aux["do_ext"]:
+            self.T_SC = p_opt.T_SC.cpu().numpy().astype(np.float64)
         return True
 
     def snapshot_full_ba(self, iterations: int = 15) -> Optional[dict]:
@@ -1716,7 +1900,7 @@ class SlidingWindowEstimator:
             if out is None:
                 return 0.0
             p, aux = out
-            p_opt, cost = self._full_ba_run_fn(p, iterations)
+            p_opt, cost = self._full_ba_run_fn(p, iterations, aux["do_ext"])
             self.apply_full_ba_result(aux, p_opt)
             return float(cost)
 
@@ -1756,7 +1940,7 @@ class SlidingWindowEstimator:
                                          fix_margin=margin if i0 > 0 else 0)
                 if out is not None:
                     p, aux = out
-                    p_opt, seg_cost = self._full_ba_run_fn(p, iterations)
+                    p_opt, seg_cost = self._full_ba_run_fn(p, iterations, aux["do_ext"])
                     if np.isfinite(float(seg_cost)):
                         # only the newest segment replays the backlog
                         self.apply_full_ba_result(aux, p_opt, backlog=i1 >= n_nodes)

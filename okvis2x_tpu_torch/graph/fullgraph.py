@@ -145,9 +145,10 @@ class FullGraphOptimizer:
                 with torch.cuda.stream(stream), timing.Timer("4.1 FullGraphSolve"):
                     if built is not None:
                         stream.wait_event(built)
-                    p_opt, _ = est._full_ba_run_fn(full["problem"], full["iterations"])
+                    p_opt, _ = est._full_ba_run_fn(full["problem"], full["iterations"],
+                                                   full["aux"]["do_ext"])
                     p_opt = p_opt._replace(**{k: getattr(p_opt, k).cpu()
-                                              for k in ("T_WS", "sb", "sb_fixed", "hp_W")})
+                                              for k in ("T_WS", "sb", "sb_fixed", "hp_W", "T_SC")})
             except Exception:  # noqa: BLE001 — logged; the window continues uncorrected
                 logging.exception("background full-graph BA failed")
                 return

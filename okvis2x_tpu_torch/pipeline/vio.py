@@ -63,6 +63,10 @@ a loop edge to the component's keyframe); components also keep place
 recognition on the frame thread.  `save_map` exports the pose graph and
 map in the reference's text layout.
 
+GNSS fixes (`add_gps_measurement`) go to the estimator.  Under online
+extrinsics calibration each frame's post-solve stage copies the calibrated
+extrinsics into the host-side projections.
+
 Semantic weighting (also inside the fused frontend) and depth input are not
 part of the port yet; enabling them raises ``NotImplementedError``.
 """
@@ -303,7 +307,11 @@ class VioPipeline:
             self.est.defer_edge_jobs = True
 
         # constants of the association on the device, made once: a copy from
-        # the host inside the frame's launch chain would be a host sync
+        # the host inside the frame's launch chain would be a host sync.
+        # Under online calibration the association keeps these initial
+        # extrinsics while the host-side projections follow the calibrated
+        # ones: the JAX package's association programs capture T_SC when they
+        # are first built and are cached (ROADMAP.md C-R11); kept for parity
         F = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)  # noqa: E731
         self._T_SC_d = F(self.T_SC)
         if self.num_cams >= 2:
@@ -1219,7 +1227,7 @@ class VioPipeline:
         self.est.add_imu_measurement(t, gyr, acc)
 
     def add_gps_measurement(self, t, pos_G, err):
-        raise NotImplementedError("GNSS is not ported yet (A3 in ROADMAP.md)")
+        self.est.add_gps_measurement(t, pos_G, err)
 
     def set_imu_csv_file(self, path: str):
         self._imu_csv = debug_csv.ImuCsvWriter(path)
@@ -1297,6 +1305,9 @@ class VioPipeline:
         per-frame data.  Returns whether a loop closed."""
         est = self.est
         cfg = self.cfg
+        if est.cfg.do_extrinsics:
+            # the host-side projections follow the calibrated extrinsics
+            self.T_SC = est.T_SC.copy()
         frame_data = self.frames.get(fid)
         if frame_data is not None:
             # refresh landmark descriptors with the freshest observation (a

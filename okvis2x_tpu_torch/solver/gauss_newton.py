@@ -4,16 +4,19 @@ Torch counterpart of ``okvis2x_tpu/solver/gauss_newton.py``:
 
   * every factor family is linearised in one ``vmap`` of ``jacfwd`` through
     the manifold retraction at zero increment;
-  * frame/extrinsic Jacobian blocks are scattered into dense rows of a tall
-    (n_res, P) matrix, so H_ff = J^T J is one matrix product;
+  * the reprojection rows are scattered into dense rows of a tall (n_res, P)
+    matrix (frame and extrinsics columns), so their H_ff = J^T J is one
+    matrix product; the small families (priors, IMU links, relative-pose
+    edges, GNSS fixes, extrinsics priors) add block products at the columns
+    of their parameter blocks;
   * landmark blocks are accumulated per landmark with ``index_add_`` and
     eliminated by a batched Schur complement with closed-form 3x3 inverses;
   * robustification is IRLS with the sqrt(rho') corrector;
   * the LM loop uses deferred accept/reject ("one linearisation per
     iteration") and an optional early exit on converged accepted steps.
 
-Depth, GNSS, online-extrinsics and submap-ICP rows are not part of the port
-yet: a problem that carries any of them raises ``NotImplementedError``.
+Depth priors and submap-ICP rows are not part of the port yet: a problem
+that carries depth priors raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch.func import jacfwd, vmap
 
 from okvis2x_tpu_torch.cameras.pinhole import Camera
 from okvis2x_tpu_torch.core import se3
-from okvis2x_tpu_torch.factors import imu_factor, priors, reprojection, robust
+from okvis2x_tpu_torch.factors import gps, imu_factor, priors, reprojection, robust
 from okvis2x_tpu_torch.imu.preintegration import ImuParams
 from okvis2x_tpu_torch.solver.problem import BAProblem, apply_delta, free_mask
 from okvis2x_tpu_torch.utils import forward_ad
@@ -82,6 +85,8 @@ class SolverConfig(NamedTuple):
     early_min_iterations: int = 2
     rel_loss: str = robust.NONE
     rel_loss_scale: float = 10.0
+    # online extrinsics calibration: add the T_SC prior rows
+    use_ext_priors: bool = False
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -91,10 +96,6 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _check_ported(p: BAProblem):
     if bool(p.obs_depth_valid.any()):
         raise NotImplementedError("depth priors are not ported yet")
-    if bool(p.gps_valid.any()):
-        raise NotImplementedError("GNSS factors are not ported yet")
-    if bool((~p.ext_fixed).any()) or bool(p.ext_prior_valid.any()):
-        raise NotImplementedError("online extrinsics calibration is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -104,25 +105,27 @@ def _check_ported(p: BAProblem):
 
 def _accumulate_blocks(H: torch.Tensor, b: torch.Tensor, r: torch.Tensor, blocks,
                        valid: torch.Tensor):
-    """Add a factor family given as per-frame Jacobian blocks to the frame
-    normal equations in place: H += J^T J, b -= J^T r, with J the rows
-    (n, d, P) that the blocks [(J (n, d, 15), frame index (n,)), ...] span
-    (blocks on the same frame add up).  Block products instead of the dense
-    rows keep a pose graph of hundreds of nodes at O(n) work."""
+    """Add a factor family given as Jacobian blocks to the reduced normal
+    equations in place: H += J^T J, b -= J^T r, with J the rows (n, d, P)
+    that the blocks [(J (n, d, w), first column (n,)), ...] span (blocks on
+    the same columns add up; the cross products of a row's blocks land
+    off the diagonal).  A frame block is 15 wide at column 15 * slot, a T_GW
+    block 4 wide at P - 4, an extrinsics block 6 wide at K * 15 + 6 * c.
+    Block products instead of the dense rows keep a pose graph of hundreds
+    of nodes at O(n) work."""
     m = valid.to(r.dtype)
     r = r * m[:, None]
-    ar = torch.arange(15, device=r.device)
     n = r.shape[0]
-    for Ja, ia in blocks:
-        Ja = Ja * m[:, None, None]
-        rows = ia[:, None] * 15 + ar
+    idx = [(J * m[:, None, None], c0[:, None] + torch.arange(J.shape[-1], device=r.device))
+           for J, c0 in blocks]
+    for Ja, rows in idx:
         b.index_add_(0, rows.reshape(-1), -torch.einsum("nri,nr->ni", Ja, r).reshape(-1))
-        for Jb, ib in blocks:
-            Hab = torch.einsum("nri,nrj->nij", Ja, Jb * m[:, None, None])
-            cols = ib[:, None] * 15 + ar
+        for Jb, cols in idx:
+            Hab = torch.einsum("nri,nrj->nij", Ja, Jb)
+            wa, wb = rows.shape[1], cols.shape[1]
             H.index_put_(
-                (rows[:, :, None].expand(n, 15, 15).reshape(-1),
-                 cols[:, None, :].expand(n, 15, 15).reshape(-1)),
+                (rows[:, :, None].expand(n, wa, wb).reshape(-1),
+                 cols[:, None, :].expand(n, wa, wb).reshape(-1)),
                 Hab.reshape(-1), accumulate=True,
             )
 
@@ -179,27 +182,63 @@ def _linearize_imu(p: BAProblem, cfg: SolverConfig):
         r, Ji, Jj = vmap(one)(
             p.T_WS[i], p.sb[i], p.T_WS[j], p.sb[j], p.imu_pre, p.imu_sqrt_info
         )
-    return r, [(Ji, i), (Jj, j)], p.imu_valid
+    return r, [(Ji, i * 15), (Jj, j * 15)], p.imu_valid
 
 
-def _linearize_priors(p: BAProblem):
-    dtype, dev = p.T_WS.dtype, p.T_WS.device
-    z6 = torch.zeros(6, dtype=dtype, device=dev)
+def _pose_priors(T: torch.Tensor, T_prior: torch.Tensor, si: torch.Tensor):
+    """Batched pose priors (n, 7) and their minimal Jacobians: (r (n, 6),
+    J (n, 6, 6))."""
+    z6 = torch.zeros(6, dtype=T.dtype, device=T.device)
 
-    def pose_one(T, Tp, si):
+    def one(T1, Tp, si1):
         def f(d):
-            r = priors.pose_prior_residual(Tp, se3.retract(T, d), si)
+            r = priors.pose_prior_residual(Tp, se3.retract(T1, d), si1)
             return r, r
 
         J, r = jacfwd(f, has_aux=True)(z6)
         return r, J
 
-    ks = torch.arange(p.K, device=dev)
     with forward_ad.LOCK:
-        r_pp, Jp = vmap(pose_one)(p.T_WS, p.pose_prior_T, p.pose_prior_sqrt_info)
+        return vmap(one)(T, T_prior, si)
+
+
+def _linearize_priors(p: BAProblem):
+    c0 = torch.arange(p.K, device=p.T_WS.device) * 15
+    r_pp, Jp = _pose_priors(p.T_WS, p.pose_prior_T, p.pose_prior_sqrt_info)
     r_sb = priors.speed_bias_prior_residual(p.sb_prior, p.sb, p.sb_prior_sqrt_info)
-    return ((r_pp, [(_pad15(Jp, 0), ks)], p.pose_prior_valid),
-            (r_sb, [(_pad15(p.sb_prior_sqrt_info, 6), ks)], p.sb_prior_valid))
+    return ((r_pp, [(_pad15(Jp, 0), c0)], p.pose_prior_valid),
+            (r_sb, [(_pad15(p.sb_prior_sqrt_info, 6), c0)], p.sb_prior_valid))
+
+
+def _linearize_gps(p: BAProblem, cfg: SolverConfig):
+    """GNSS position rows: one block over the host frame's pose and
+    speed/bias (15 columns) and one over the 4 T_GW columns."""
+    dtype, dev = p.T_WS.dtype, p.T_WS.device
+    z6 = torch.zeros(6, dtype=dtype, device=dev)
+    z9 = torch.zeros(9, dtype=dtype, device=dev)
+    z4 = torch.zeros(4, dtype=dtype, device=dev)
+
+    def one(T_WS, sb, pre, p_G, si):
+        def f(dpose, dsb, d4):
+            r = gps.residual_async_on_manifold(cfg.imu_params, pre, p.T_GW, T_WS, sb, p_G,
+                                               p.gps_r_SA, si, dpose, dsb, d4)
+            return r, r
+
+        (Jp, Jsb, J4), r = jacfwd(f, argnums=(0, 1, 2), has_aux=True)(z6, z9, z4)
+        return r, torch.cat([Jp, Jsb], dim=1), J4
+
+    fi = p.gps_frame
+    with forward_ad.LOCK:
+        r, Jf, J4 = vmap(one)(p.T_WS[fi], p.sb[fi], p.gps_pre, p.gps_p_G, p.gps_sqrt_info)
+    return r, [(Jf, fi * 15), (J4, torch.full_like(fi, p.P - 4))], p.gps_valid
+
+
+def _linearize_ext_priors(p: BAProblem):
+    """Unary pose priors on the camera extrinsics T_SC (online calibration),
+    in the columns K * 15 + 6 * c."""
+    r, J = _pose_priors(p.T_SC, p.ext_prior_T, p.ext_prior_sqrt_info)
+    c0 = p.K * 15 + torch.arange(p.C, device=r.device) * 6
+    return r, [(J, c0)], p.ext_prior_valid
 
 
 def _so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
@@ -249,7 +288,7 @@ def _linearize_rel(p: BAProblem, cfg: SolverConfig):
         r = r * sw[:, None]
         Ji = Ji * sw[:, None, None]
         Jj = Jj * sw[:, None, None]
-    return r, [(_pad15(Ji, 0), i), (_pad15(Jj, 0), j)], p.rel_valid
+    return r, [(_pad15(Ji, 0), i * 15), (_pad15(Jj, 0), j * 15)], p.rel_valid
 
 
 class Linearization(NamedTuple):
@@ -300,14 +339,19 @@ def linearize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Lineariz
         0, p.obs_lm, Wn
     )
 
-    # priors, IMU links and relative-pose edges: per-frame blocks added to
-    # the frame system (the columns of frozen parameters are cleared by the
-    # gauge fixing below)
+    # priors, IMU links, relative-pose edges, GNSS fixes and extrinsics
+    # priors: blocks added to the reduced system (the columns of frozen
+    # parameters are cleared by the gauge fixing below); families of zero
+    # capacity are skipped
     fams = list(_linearize_priors(p))
     if p.imu_i.shape[0]:
         fams.append(_linearize_imu(p, cfg))
     if p.rel_i.shape[0]:
         fams.append(_linearize_rel(p, cfg))
+    if p.gps_frame.shape[0]:
+        fams.append(_linearize_gps(p, cfg))
+    if cfg.use_ext_priors:
+        fams.append(_linearize_ext_priors(p))
     for r_, blocks, v_ in fams:
         _accumulate_blocks(H_ff, b_f, r_, blocks, v_)
         cost = cost + 0.5 * torch.sum((r_ * v_.to(dtype)[:, None]) ** 2)
@@ -350,6 +394,16 @@ def compute_cost(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> torch
         )
         s_r = torch.sum(r_r * r_r, dim=-1) * p.rel_valid.to(dtype)
         cost = cost + 0.5 * torch.sum(robust.rho(cfg.rel_loss, s_r, cfg.rel_loss_scale))
+
+    if p.gps_frame.shape[0]:
+        fi = p.gps_frame
+        r_g = gps.residual_async(cfg.imu_params, p.gps_pre, p.T_GW, p.T_WS[fi], p.sb[fi],
+                                 p.gps_p_G, p.gps_r_SA, p.gps_sqrt_info)
+        cost = cost + 0.5 * torch.sum((r_g * p.gps_valid.to(dtype)[:, None]) ** 2)
+
+    if cfg.use_ext_priors:
+        r_e = priors.pose_prior_residual(p.ext_prior_T, p.T_SC, p.ext_prior_sqrt_info)
+        cost = cost + 0.5 * torch.sum((r_e * p.ext_prior_valid.to(dtype)[:, None]) ** 2)
     return cost
 
 

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from okvis2x_tpu_torch.core import se3
+from okvis2x_tpu_torch.factors.gps import retract_4dof
 from okvis2x_tpu_torch.imu.preintegration import Preintegrated
 
 
@@ -69,7 +70,7 @@ class BAProblem(NamedTuple):
     rel_T: torch.Tensor  # (R, 7)
     rel_sqrt_info: torch.Tensor  # (R, 6, 6)
     rel_valid: torch.Tensor  # (R,) bool
-    # -- GNSS alignment + position rows (no valid row in the VIO slice) -----
+    # -- GNSS alignment + position rows -------------------------------------
     T_GW: torch.Tensor  # (7,)
     tgw_fixed: torch.Tensor  # () bool
     gps_frame: torch.Tensor  # (G,) int
@@ -179,14 +180,6 @@ def free_mask(p: BAProblem) -> torch.Tensor:
     ext_free = (~p.ext_fixed)[:, None].expand(-1, 6).reshape(-1)
     tgw_free = (~p.tgw_fixed).reshape(1).expand(4)
     return torch.cat([per_frame, ext_free, tgw_free])
-
-
-def retract_4dof(T_GW: torch.Tensor, d4: torch.Tensor) -> torch.Tensor:
-    """Position + yaw boxplus for the GNSS alignment frame."""
-    t = T_GW[:3] + d4[:3]
-    dyaw = torch.cat([torch.zeros(2, dtype=d4.dtype, device=d4.device), d4[3:4]])
-    q = se3.quat_normalize(se3.quat_multiply(se3.delta_q(dyaw), T_GW[3:7]))
-    return torch.cat([t, q])
 
 
 def apply_delta(p: BAProblem, dx: torch.Tensor, dl: torch.Tensor) -> BAProblem:

@@ -1,12 +1,15 @@
 """The port's dataset app against `apps/okvis2x_app.py`: both apps on one
 EuRoC-layout dataset written by the JAX package's generator and one
 okvis2.yaml-schema config, in `vio` mode on the CPU (the JAX app in a
-process of its own on two cores); the `slam` mode on a synthetic dataset;
-the recorder; and what the port refuses (the unported modes, GNSS events, a
-missing CUDA device)."""
+process of its own on two cores), and again on an extended-layout dataset
+with a GNSS stream and online extrinsics calibration in the config; the
+`slam` mode on a synthetic dataset; the recorder; the config's calibration
+sigmas; and what the port refuses (the unported modes, a missing CUDA
+device)."""
 
 import filecmp
 import os
+import runpy
 import subprocess
 import sys
 import types
@@ -24,11 +27,19 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 8
 POS_TOL_M = 0.01  # as tests/test_torch_slice.py holds the two pipelines
+# the GNSS run: 12 frames of the flagship circuit at 320x240 and 10 Hz (the
+# alignment needs 6 fixes over 1 m of motion: "Initialised" at frame 10)
+GNSS_FRAMES = 12
+# the two apps agree to 1e-8 on these 12 frames; held to 1e-6 (T_GW in m and
+# quaternion entries, T_SC likewise) and 1e-5 m on the positions of the TUM files
+GNSS_TOL = 1e-6
+GNSS_POS_TOL_M = 1e-5
 
 
-def write_config(path, width, height, fx, dist, T_SC):
+def write_config(path, width, height, fx, dist, T_SC, calibration=""):
     """An okvis2.yaml-schema config for the generator's stereo rig, written
-    as the reference's files are: the %YAML header, flow-mapping cameras."""
+    as the reference's files are: the %YAML header, flow-mapping cameras;
+    `calibration` is the body of a camera_parameters section."""
     cams = []
     for T in T_SC:
         M = np.eye(4)
@@ -43,9 +54,10 @@ def write_config(path, width, height, fx, dist, T_SC):
         principal_point: [{width / 2!r}, {height / 2!r}],
         camera_type: gray, # gray, rgb, gray+depth, rgb+depth
         slam_use: okvis}}""")
+    if calibration:
+        calibration = "\ncamera_parameters:\n" + calibration
     with open(path, "w") as f:
-        f.write("%YAML:1.0\ncameras:\n" + "\n".join(cams) + """
-
+        f.write("%YAML:1.0\ncameras:\n" + "\n".join(cams) + "\n" + calibration + """
 imu_parameters:
     use: true
     a_max: 176.0 # acceleration saturation [m/s^2]
@@ -145,6 +157,91 @@ def test_vio_app_tracks_csv(vio_runs):
     assert abs(len(rows["port"]) - len(rows["jax"])) <= 0.1 * len(rows["jax"])
 
 
+def record_app(pkg, argv, out_npz):
+    """Run `pkg`'s dataset app on `argv`, recording after each frame the GNSS
+    status, T_GW and T_SC (`chip_smoke.GnssRecorder`), into `out_npz`."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    vio = __import__(f"{pkg}.pipeline.vio", fromlist=["VioPipeline"])
+    est = __import__(f"{pkg}.graph.estimator", fromlist=["SlidingWindowEstimator"])
+    with chip_smoke.GnssRecorder(vio.VioPipeline, est.SlidingWindowEstimator) as rec:
+        if pkg == "okvis2x_tpu":
+            saved, sys.argv = sys.argv, ["okvis2x_app.py", *argv]
+            try:
+                runpy.run_path(os.path.join(REPO, "apps", "okvis2x_app.py"), run_name="__main__")
+            finally:
+                sys.argv = saved
+        else:
+            okvis2x_app.main([*argv, "--device", "cpu"])
+    np.savez(out_npz, status=np.array(rec.status), T_GW=np.stack(rec.T_GW),
+             T_SC=np.stack(rec.T_SC), n_gps_solves=getattr(rec.pipe.est, "n_gps_solves", -1))
+
+
+@pytest.fixture(scope="module")
+def gnss_runs(tmp_path_factory):
+    """Both apps in `vio` mode on GNSS_FRAMES frames of the GNSS phase's
+    dataset and config of `chip_smoke.py` (the flagship circuit with its gps0/
+    stream, online extrinsics calibration at the default sigmas, 10 LM
+    iterations: with fewer, the early positions are too short for the
+    alignment within 16 frames) at 320x240 and 10 Hz: the JAX app in a
+    spawned process on two cores meanwhile the port's runs here.  Returns
+    (port output dir, JAX output dir)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    root = tmp_path_factory.mktemp("gnss")
+    ds, cfg, _ = chip_smoke.gnss_dataset(str(root), GNSS_FRAMES, width=320, height=240,
+                                         fx=196.0, frame_rate=10.0)
+    outs = {k: str(root / k) for k in ("port", "jax")}
+    for d in outs.values():
+        os.makedirs(d)
+
+    def args(k):
+        return ["--dataset", ds, "--config", cfg, "--mode", "vio", "--output", outs[k],
+                "--max-frames", str(GNSS_FRAMES)]
+
+    cores = sorted(os.sched_getaffinity(0))
+    pick = sorted(set(cores[-8:][:2]) or set(cores))
+    rec = os.path.join(outs["jax"], "rec.npz")
+    run = (f"import os, sys; os.sched_setaffinity(0, {pick}); "
+           f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r}); import test_torch_app as t; "
+           f"t.record_app('okvis2x_tpu', {args('jax')!r}, {rec!r})")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    with open(os.path.join(outs["jax"], "log.txt"), "w") as log:
+        ref = subprocess.Popen([sys.executable, "-c", run], cwd=REPO, env=env, stdout=log,
+                               stderr=subprocess.STDOUT)
+        try:
+            record_app("okvis2x_tpu_torch", args("port"), os.path.join(outs["port"], "rec.npz"))
+            rc = ref.wait(timeout=1200)
+        finally:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    with open(os.path.join(outs["jax"], "log.txt")) as f:
+        assert rc == 0, f.read()[-3000:]
+    return outs["port"], outs["jax"]
+
+
+def test_gnss_calibration_app_matches_jax_app(gnss_runs):
+    """GNSS fixes and online calibration through both apps: the status of
+    every frame equal (Idle, then Initialised within the run), at least one
+    window solve with a GNSS row, T_GW and T_SC within GNSS_TOL of the JAX
+    app's every frame and T_SC moved, positions within GNSS_POS_TOL_M."""
+    port, ref = gnss_runs
+    a, b = np.load(os.path.join(port, "rec.npz")), np.load(os.path.join(ref, "rec.npz"))
+    assert list(a["status"]) == list(b["status"])
+    assert "Initialised" in list(a["status"]) and a["status"][0] == "Idle"
+    assert int(a["n_gps_solves"]) >= 1
+    np.testing.assert_allclose(a["T_GW"], b["T_GW"], rtol=0, atol=GNSS_TOL)
+    np.testing.assert_allclose(a["T_SC"], b["T_SC"], rtol=0, atol=GNSS_TOL)
+    assert np.abs(a["T_SC"][-1] - a["T_SC"][0]).max() > 1e-4
+    ta = np.loadtxt(os.path.join(port, "trajectory.tum"))
+    tb = np.loadtxt(os.path.join(ref, "trajectory.tum"))
+    assert ta.shape == tb.shape == (GNSS_FRAMES, 8)
+    assert float(np.abs(ta[:, 1:4] - tb[:, 1:4]).max()) < GNSS_POS_TOL_M
+
+
 def test_slam_synthetic_test_writes_both_trajectories(tmp_path):
     """`--synthetic-test --mode slam` on a few frames: the online and the
     final-BA trajectories."""
@@ -185,15 +282,80 @@ def test_unported_modes_raise(mode, item, tmp_path):
 
 
 def test_gps_event_raises(tmp_path):
-    """A dataset with a GNSS stream: its first fix raises, it is not
-    dropped."""
+    """A dataset with a GNSS stream: every fix reaches the estimator in
+    order, none is dropped (and none raises, as the first fix did before
+    GNSS was ported)."""
+    from okvis2x_tpu_torch.graph.estimator import SlidingWindowEstimator
+
     ds = str(tmp_path / "ds")
     _, T_SC, _ = synthetic.generate(ds, duration=0.6, width=64, height=48, with_gps=True)
     cfg = str(tmp_path / "okvis2.yaml")
     write_config(cfg, 64, 48, 280.0, [-0.25, 0.06, 1e-4, -1e-4], T_SC)
-    with pytest.raises(NotImplementedError, match="GNSS"):
+    fixes = []
+    add = SlidingWindowEstimator.add_gps_measurement
+    SlidingWindowEstimator.add_gps_measurement = lambda est, *a: (fixes.append(a[0]),
+                                                                  add(est, *a))
+    try:
         okvis2x_app.main(["--dataset", ds, "--config", cfg, "--mode", "vio", "--output",
                           str(tmp_path / "out"), "--device", "cpu"])
+    finally:
+        SlidingWindowEstimator.add_gps_measurement = add
+    reader = okvis2x_app.pick_reader("auto", ds, 2)
+    assert fixes == [d[0] for k, d in reader.events() if k == "gps"]
+    assert len(fixes) >= 2
+
+
+class _Built(Exception):
+    """Raised by a patched `VioPipeline.__init__` once it has the estimator
+    config, so an app stops before it runs anything."""
+
+
+def test_calibration_sigmas_reach_the_estimator(tmp_path):
+    """The config's online calibration switches and its four sigmas reach
+    `EstimatorConfig` as in the JAX app: both apps' configs are equal."""
+    from okvis2x_tpu_torch import convert
+
+    ds = str(tmp_path / "ds")
+    _, T_SC, _ = synthetic.generate(ds, duration=0.5, width=64, height=48)
+    cfg = str(tmp_path / "okvis2.yaml")
+    write_config(cfg, 64, 48, 280.0, [-0.25, 0.06, 1e-4, -1e-4], T_SC, calibration="""\
+    online_calibration:
+        do_extrinsics: true
+        do_extrinsics_final_ba: false
+        sigma_r: 0.002
+        sigma_alpha: 0.007
+        sigma_r_final_ba: 0.0005
+        sigma_alpha_final_ba: 0.003
+""")
+    argv = ["--dataset", ds, "--config", cfg, "--mode", "vio", "--output", str(tmp_path / "o")]
+    got = {}
+    for pkg in ("okvis2x_tpu", "okvis2x_tpu_torch"):
+        cls = __import__(f"{pkg}.pipeline.vio", fromlist=["VioPipeline"]).VioPipeline
+        init = cls.__init__
+
+        def capture(self, cameras, T_SC, est_config, *a, pkg=pkg, **kw):
+            got[pkg] = est_config
+            raise _Built
+
+        cls.__init__ = capture
+        saved = sys.argv
+        try:
+            with pytest.raises(_Built):
+                if pkg == "okvis2x_tpu":
+                    sys.argv = ["okvis2x_app.py", *argv]
+                    runpy.run_path(os.path.join(REPO, "apps", "okvis2x_app.py"),
+                                   run_name="__main__")
+                else:
+                    okvis2x_app.main([*argv, "--device", "cpu"])
+        finally:
+            cls.__init__ = init
+            sys.argv = saved
+    port = got["okvis2x_tpu_torch"]
+    assert port == convert.estimator_config(got["okvis2x_tpu"])
+    assert (port.do_extrinsics, port.do_extrinsics_final_ba) == (True, False)
+    assert (port.extrinsics_sigma_r, port.extrinsics_sigma_alpha,
+            port.extrinsics_sigma_r_final_ba, port.extrinsics_sigma_alpha_final_ba) == (
+        0.002, 0.007, 0.0005, 0.003)
 
 
 def test_default_device_needs_cuda(tmp_path):

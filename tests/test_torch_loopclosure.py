@@ -300,12 +300,12 @@ def test_lc_match_matches_jax():
 
 # ------------------------------------------------------- what is not ported
 @pytest.mark.parametrize("unported", [
-    "do_extrinsics", dict(segmentation="heuristic"),
+    "cap_icp", dict(segmentation="heuristic"),
     dict(deferred_frontend=True, segmentation="net"), "depth_input",
 ])
 def test_unported_loop_closure_features_raise(unported):
     """Semantic keypoint weighting (also inside the deferred fused
-    frontend), online extrinsics and depth input raise instead of running
+    frontend), live submap-ICP rows and depth input raise instead of running
     something else."""
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig as TPipelineConfig
 
@@ -316,8 +316,8 @@ def test_unported_loop_closure_features_raise(unported):
     with pytest.raises(NotImplementedError):
         if isinstance(unported, dict):
             VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
-        elif unported == "do_extrinsics":
-            VioPipeline([cam], T_SC, convert.estimator_config(EstimatorConfig(do_extrinsics=True)),
+        elif unported == "cap_icp":
+            VioPipeline([cam], T_SC, convert.estimator_config(EstimatorConfig(cap_icp=64)),
                         TPipelineConfig(**sync), device="cpu")
         else:
             pipe = VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**sync), device="cpu")
