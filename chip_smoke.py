@@ -50,7 +50,7 @@
    component; session B is a new pipeline without a vocabulary file
    (`vocab_path=""`) in phase 6's configuration that loads it (a vocabulary
    of 256 words bootstrapped from A's descriptors: binary k-means on the
-   fused kernel) and runs the first 20 frames from a world frame 1.5 m
+   fused kernel) and runs the first 12 frames from a world frame 1.5 m
    lateral and 0.1 rad of yaw off A's (moved so right after the
    estimator's first state, before the first keyframe is recorded): B must
    relocalise, its poses from then on must lie within 0.2 m and 0.05 rad
@@ -72,7 +72,7 @@
    vocabulary descent; it prints the frame times, the peak memory and the
    launches by site;
 7c. GNSS and online calibration through the app: `generate` writes the first
-   40 frames (2.0 s) of the flagship circuit (752x480, 20 Hz) with its 5 Hz
+   30 frames (1.5 s) of the flagship circuit (752x480, 20 Hz) with its 5 Hz
    gps0/ stream (a frame yawed 0.4 rad and moved (30, -12, 4) m from the
    world, 5 cm noise) under build/gnss_phase/, with an okvis2.yaml-schema
    config that turns on `online_calibration` (window and final BA);
@@ -84,6 +84,29 @@
    most twice the JAX app's on the same frames (floors 1 degree, 0.05 m);
    it prints the status by frame, how far T_SC moved, the frame, solve,
    alignment and final-BA times, the peak memory and the launches by site;
+7d. RGB-D through the app: `generate` writes the first 20 frames (1.0 s) of
+   the 0.8 m circuit (752x480, 20 Hz, seed 3) with cam0's depth0/ stream
+   under build/rgbd_phase/; `okvis2x_app.main` runs `--mode rgbd --reader
+   xdataset` on cuda:0 (sensor depth priors; on every keyframe the learned
+   stereo and multi-view depth against the last two of four kept keyframes,
+   fused by inverse variance and integrated into the 128^3 occupancy
+   submaps): the online and final ATE must be at most 0.25 m and at most
+   twice the JAX app's on the same frames (floor 0.05 m), depth priors must
+   have been attached, at least as many keyframes integrated as by the JAX
+   app, map.ply's point count within 5% of the JAX app's and the grids'
+   integration counts, log-odds sum, observed voxels and voxels with
+   positive log-odds within 1% of the JAX app's; on the last
+   keyframe's inputs the card's fused depth must be within 1e-3 m of the
+   CPU's where both are valid, with the valid masks differing on at most
+   0.1% of the pixels, and the card's 128^3 grid after integrating it must
+   equal the CPU's (counts, occupied sets, log-odds within 1e-5); it prints
+   the stage means, the nets' device times (CUDA events), one integration's
+   time and the peak memory;
+7e. the depth mode: 40 frames of the sinusoid scene at the same operating
+   point with cam0 an rgb camera in the config and an se2.yaml (the dense
+   grid, submaps of up to 50 keyframes), `--mode depth --se2-config`: the
+   same ATE, keyframe, map and grid checks, and map.ply must carry points
+   with RGB;
 8. asynchronous loop closure on the same frames: the flagship configuration
    of tools/slam_bench.py without its deferred frontend (place recognition
    on the worker thread, the background optimisation of the history,
@@ -163,7 +186,7 @@ LC_PIPES = {
 LC_ESTS = {"synchronous": {}, "asynchronous": FLAGSHIP_EST, "flagship": FLAGSHIP_EST}
 # the multi-session phase: session B runs this many frames from a world frame
 # 1.5 m lateral and 0.1 rad of yaw off session A's (tests/test_multisession.py)
-MS_FRAMES = 20
+MS_FRAMES = 12
 MS_OFFSET = (1.5, 0.1)
 MS_POS_TOL_M, MS_ROT_TOL_RAD = 0.2, 0.05
 # the app phase: this many frames of the 0.8 m circuit written as a dataset
@@ -171,24 +194,71 @@ MS_POS_TOL_M, MS_ROT_TOL_RAD = 0.2, 0.05
 # exit: 2.3-3 s a frame on the card; 20 frames keep the phase under a
 # minute and, with the GNSS phase after it, the script under about 1100 s)
 APP_FRAMES = 20
-# the GNSS phase: the first 40 frames (2.0 s) of the flagship circuit with a
+# the GNSS phase: the first 30 frames (1.5 s) of the flagship circuit with a
 # 5 Hz GNSS stream in a frame yawed by 0.4 rad and moved by (30, -12, 4) m, as
 # tools/gnss_scale_run.py writes it, and online extrinsics calibration on
-GNSS_FRAMES = 40
+GNSS_FRAMES = 30
 GNSS_DATA = dict(frame_rate=20.0, imu_rate=200.0, width=752, height=480, fx=460.0,
                  density=22.0, seed=3, scene_version=2, trajectory="circuit", with_gps=True,
                  gps_rate=5.0, gps_sigma=0.05)
 TRUE_YAW_G = 0.4
 TRUE_T_G = np.array([30.0, -12.0, 4.0])
-# the JAX app on the same 40 frames on the CPU (`python tests/test_torch_gps.py`,
+# the JAX app on the same 30 frames on the CPU (`python tests/test_torch_gps.py`,
 # PERF.md section 4): the T_GW errors against the generator's alignment, as
 # tools/gnss_scale_run.py measures them (deg, m) and carried into the
 # estimator's world frame (`tgw_error_local`), and the global ATE online and
 # after the final BA (m); the port is held to twice these, with floors of 1
 # degree and 0.05 m
-JAX_GNSS = dict(yaw_deg=93.67248111729839, t_m=7.995224279562299,
-                local_yaw_deg=0.3456513441217758, local_t_m=0.1327722035961494,
-                ate_global_online_m=0.12722267514048136, ate_global_final_m=0.11034815065354234)
+JAX_GNSS = dict(yaw_deg=92.77341210680439, t_m=7.9471982317781,
+                local_yaw_deg=1.2447203546157775, local_t_m=0.1485304571171042,
+                ate_global_online_m=0.10916429945436963, ate_global_final_m=0.14026148810239417)
+# the RGB-D phase: the first 20 frames (1.0 s) of the 0.8 m circuit at the
+# EuRoC operating point with cam0's depth0/ stream, through the app in rgbd
+# mode (3 keyframes, 1 of them fused, in the JAX app); then the depth mode
+# with cam0 an rgb camera on 40 frames of the sinusoid scene at the same
+# operating point, where every frame is a keyframe, under DEPTH_SE2: the
+# dense 128^3 grid at 0.2 m of the default config with submaps of up to 50
+# keyframes, since a voxel passes map.ply's log-odds 1.0 only after about 20
+# integrations of its surface and the default 20-keyframe submaps close
+# before more than a few do (in the JAX app too)
+RGBD_FRAMES = 20
+DEPTH_FRAMES = 40
+DEPTH_DATA = {
+    "rgbd": dict(frame_rate=20.0, imu_rate=200.0, width=752, height=480, fx=460.0,
+                 density=22.0, seed=3, scene_version=2, trajectory="circuit", with_depth=True,
+                 traj_kwargs=SMALL_CIRCUIT),
+    "depth": dict(frame_rate=20.0, imu_rate=200.0, width=752, height=480, fx=460.0,
+                  density=22.0, seed=3, scene_version=2, trajectory="sinusoid"),
+}
+DEPTH_SE2 = """general:
+  submap_kf_threshold: 50
+  submap_overlap_ratio: 0.1
+  submap_min_frames: 4
+  depth_image_resolution_downsampling: 4
+  far_plane: 20.0
+map:
+  dim: [25.6, 25.6, 25.6]
+  res: 0.2
+"""
+# the JAX app on the same frames on the CPU (`python tests/test_torch_depth.py
+# rgbd 20` and `... depth 40`, PERF.md section 4): ATEs (m), keyframes
+# integrated, map.ply's points, `grid_stats`; the port is held to twice the
+# ATEs (floor 0.05 m), at least as many keyframes, the point count within
+# MAP_POINTS_TOL and the grids within GRID_TOL
+JAX_DEPTH = {
+    "rgbd": dict(ate_online_m=0.0018757473180094646, ate_final_m=0.0010592783497619398,
+                 n_integrated=1, map_points=0, n_submaps=1, total_weight=1263360.0,
+                 logodds_sum=-285.7844184727701, observed_voxels=32781, positive_voxels=7991,
+                 voxels_above_1=0),
+    "depth": dict(ate_online_m=0.16530913049977183, ate_final_m=0.021758636766306624,
+                  n_integrated=40, map_points=329, n_submaps=1, total_weight=49994830.0,
+                  logodds_sum=-29293.998706619986, observed_voxels=140971,
+                  positive_voxels=40664, voxels_above_1=329),
+}
+MAP_POINTS_TOL = 0.05
+GRID_TOL = 0.01  # the grids' counts and voxel sets (grid_stats) against the JAX app's
+FUSED_TOL_M = 1e-3  # the card's fused keyframe depth against the CPU's
+FUSED_MASK_TOL = 1e-3
 COMPARE_EVERY = 16  # flagship frames between two holds of the kernel against its plain version
 PCG_NODES = (300, 1000)
 PCG_ITERATIONS = 15  # PipelineConfig.full_graph_iterations
@@ -247,6 +317,19 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def peak_mib(fn):
+    """Device memory that one call of `fn` allocates at its peak above what
+    was allocated before it (MiB; cuDNN's and cuBLAS's workspaces included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**20
 
 
 def device_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
@@ -1167,15 +1250,15 @@ def multisession_phase(dev, card, vio_a, seq):
     return sites
 
 
-def app_config(path, seq, online_calibration=False):
+def app_config(path, seq, online_calibration=False, camera_type="gray"):
     """An okvis2.yaml-schema config for the rendered rig (`seq.camera`, a dict
     of the intrinsics, and `seq.T_SC`), as the reference's files are written:
     the %YAML header, one flow mapping a camera; with `online_calibration`
     the extrinsics are estimated in the window and in the final BA, at the
-    default sigmas."""
+    default sigmas; `camera_type` is cam0's ("rgb": colour submaps)."""
     c = seq.camera
     cams = []
-    for T in seq.T_SC:
+    for k, T in enumerate(seq.T_SC):
         M = np.eye(4)
         M[:3, 3] = T[:3]
         rows = ",\n          ".join(", ".join(repr(float(v)) for v in r) for r in M)
@@ -1186,7 +1269,7 @@ def app_config(path, seq, online_calibration=False):
         distortion_type: radialtangential,
         focal_length: [{c['fx']!r}, {c['fy']!r}],
         principal_point: [{c['cx']!r}, {c['cy']!r}],
-        camera_type: gray, # gray, rgb, gray+depth, rgb+depth
+        camera_type: {camera_type if k == 0 else "gray"}, # gray, rgb, gray+depth, rgb+depth
         slam_use: okvis}}""")
     calib = """
 camera_parameters:
@@ -1594,6 +1677,368 @@ def gnss_phase(dev, card):
     return sites
 
 
+def depth_dataset(root, mode, n_frames):
+    """Write the dataset of the `mode` phase (DEPTH_DATA) for `n_frames`
+    frames under `root`/dataset in the extended EuRoC layout (with cam0's
+    depth0/ stream for rgbd), an okvis2.yaml-schema config (cam0 an rgb
+    camera for the depth mode) and, for the depth mode, DEPTH_SE2 as an
+    se2.yaml; returns (dataset dir, the app's arguments without the
+    device)."""
+    import os
+    import shutil
+
+    from okvis2x_tpu_torch.io import synthetic
+
+    shutil.rmtree(root, ignore_errors=True)
+    kw = DEPTH_DATA[mode]
+    ds_dir = os.path.join(root, "dataset")
+    cam, T_SC, _ = synthetic.generate(ds_dir, duration=0.3 + n_frames / kw["frame_rate"], **kw)
+    fx, fy, cx, cy = (float(v) for v in cam.fxfycxcy)
+    rig = types.SimpleNamespace(
+        camera=dict(width=cam.width, height=cam.height, fx=fx, fy=fy, cx=cx, cy=cy,
+                    dist_params=[float(v) for v in cam.dist_params]),
+        T_SC=T_SC)
+    cfg = os.path.join(root, "okvis2.yaml")
+    app_config(cfg, rig, camera_type="rgb" if mode == "depth" else "gray")
+    argv = ["--dataset", ds_dir, "--config", cfg, "--mode", mode, "--reader", "xdataset",
+            "--output", os.path.join(root, "out"), "--max-frames", str(n_frames)]
+    if mode == "depth":
+        se2 = os.path.join(root, "se2.yaml")
+        with open(se2, "w") as f:
+            f.write(DEPTH_SE2)
+        argv += ["--se2-config", se2]
+    return ds_dir, argv
+
+
+class DepthRecorder:
+    """Wraps, while an app runs in a depth mode (the JAX package's or the
+    port's classes): `process_frame` (each frame's wall time to the end of
+    its device work, the pipeline), `attach_depth_priors` (the priors
+    attached) and `SubmappingInterface.integrate_depth` (the depth images
+    integrated)."""
+
+    def __init__(self, pipeline_cls, submapping_cls):
+        self.classes = (pipeline_cls, submapping_cls)
+        self.pipe, self.wall, self.n_priors, self.n_integrated = None, [], 0, 0
+        self.last_integration = None  # the arguments of the last integration
+        self.submapping = None  # the interface that integrated them
+
+    def __enter__(self):
+        pipeline_cls, submapping_cls = self.classes
+        self.saved = (pipeline_cls.process_frame, pipeline_cls.attach_depth_priors,
+                      submapping_cls.integrate_depth)
+        process_frame, attach, integrate = self.saved
+        rec = self
+
+        def frame(pipe, *args, **kwargs):
+            t = time.perf_counter()
+            info = process_frame(pipe, *args, **kwargs)
+            if getattr(pipe, "device", None) is not None and pipe.device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(pipe.device)
+            rec.wall.append(time.perf_counter() - t)
+            rec.pipe = rec.pipe or pipe
+            return info
+
+        def attached(pipe, *args, **kwargs):
+            n = attach(pipe, *args, **kwargs)
+            rec.n_priors += n
+            return n
+
+        def integrated(si, *args, **kwargs):
+            rec.n_integrated += 1
+            rec.last_integration, rec.submapping = args, si
+            return integrate(si, *args, **kwargs)
+
+        pipeline_cls.process_frame = frame
+        pipeline_cls.attach_depth_priors = attached
+        submapping_cls.integrate_depth = integrated
+        return self
+
+    def __exit__(self, *exc):
+        pipeline_cls, submapping_cls = self.classes
+        (pipeline_cls.process_frame, pipeline_cls.attach_depth_priors,
+         submapping_cls.integrate_depth) = self.saved
+
+
+def ply_vertices(path):
+    """(vertex count, whether the vertices carry RGB) of an ASCII PLY."""
+    head = []
+    with open(path) as f:
+        for ln in f:
+            if ln.strip() == "end_header":
+                break
+            head.append(ln)
+    n = int(next(ln for ln in head if ln.startswith("element vertex")).split()[2])
+    return n, any("uchar red" in ln for ln in head)
+
+
+def grid_stats(si):
+    """The occupancy grids of an app's submapping interface (the JAX
+    package's or the port's) summed over its submaps: the submaps, the
+    integration counts, the log-odds, the voxels observed (count > 0), those
+    with positive log-odds (surface evidence) and those above 1.0 (map.ply's
+    threshold)."""
+    import torch
+
+    def host(x):
+        return (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)).astype(np.float64)
+
+    weight = [host(e.sm.weight) for e in si.maps]
+    logodds = [host(e.sm.logodds) for e in si.maps]
+    return dict(n_submaps=len(si.maps), total_weight=float(sum(w.sum() for w in weight)),
+                logodds_sum=float(sum(lo.sum() for lo in logodds)),
+                observed_voxels=int(sum((w > 0).sum() for w in weight)),
+                positive_voxels=int(sum((lo > 0).sum() for lo in logodds)),
+                voxels_above_1=int(sum((lo > 1.0).sum() for lo in logodds)))
+
+
+def depth_metrics(rec, ds_dir, out):
+    """What the depth phases check, from a recorded app run that wrote its
+    trajectories and map.ply to `out`: the ATEs, the priors, the keyframes
+    integrated, map.ply's points and `grid_stats`."""
+    import os
+
+    from okvis2x_tpu_torch.io import trajectory_io, xdataset
+
+    gt = xdataset.XDataset(ds_dir).ground_truth
+    ts, Ts = trajectory_io.read_tum(os.path.join(out, "trajectory.tum"))
+    fts, fTs = trajectory_io.read_tum(os.path.join(out, "final_trajectory.tum"))
+    n_map, rgb = ply_vertices(os.path.join(out, "map.ply"))
+    return dict(
+        ate_online_m=float(trajectory_io.ate_rmse(ts, Ts[:, :3], gt[:, 0], gt[:, 1:4])),
+        ate_final_m=float(trajectory_io.ate_rmse(fts, fTs[:, :3], gt[:, 0], gt[:, 1:4])),
+        n_frames=len(ts), n_final=len(fts), n_priors=rec.n_priors,
+        n_integrated=rec.n_integrated, map_points=n_map, map_rgb=rgb,
+        **grid_stats(rec.submapping),
+    )
+
+
+class FusionCapture:
+    """Keeps the inputs of the port's last stereo and multi-view depth calls
+    while the app runs (the module functions the app's keyframe stage
+    calls)."""
+
+    def __enter__(self):
+        from okvis2x_tpu_torch.models import mvs, stereo
+
+        self.mods = (stereo, mvs)
+        self.saved = (stereo.stereo_depth, mvs.mvs_depth)
+        stereo_depth, mvs_depth = self.saved
+        self.stereo_args = self.mvs_args = None
+
+        def st(*args, **kwargs):
+            self.stereo_args = (args, kwargs)
+            return stereo_depth(*args, **kwargs)
+
+        def mv(*args, **kwargs):
+            self.mvs_args = (args, kwargs)
+            return mvs_depth(*args, **kwargs)
+
+        stereo.stereo_depth, mvs.mvs_depth = st, mv
+        return self
+
+    def __exit__(self, *exc):
+        stereo, mvs = self.mods
+        stereo.stereo_depth, mvs.mvs_depth = self.saved
+
+
+def depth_device_checks(dev, card, cap, integration):
+    """On one keyframe's inputs (the last fusion of the RGB-D phase and its
+    integration's camera and poses): the fused depth on the card against the
+    port's on the CPU, the card's 128^3 grid after integrating it against the
+    CPU's, and the device times of the two nets, of the fusion and of one
+    integration (CUDA events)."""
+    import torch
+    from okvis2x_tpu_torch.apps.okvis2x_app import fused_depth
+    from okvis2x_tpu_torch.core import se3
+    from okvis2x_tpu_torch.mapping import submap
+    from okvis2x_tpu_torch.models import mvs_net, stereo_net
+
+    (left, right, fx, baseline), _ = cap.stereo_args
+    (_, srcs, K, T_rs), _ = cap.mvs_args
+    _, T_WK, T_WC, cam = integration[:4]
+    d_card, s_card = fused_depth(left, right, fx, baseline, srcs, K, T_rs)
+    cpu = [x.cpu() for x in (left, right, srcs, K, T_rs)]
+    d_cpu, s_cpu = fused_depth(cpu[0], cpu[1], fx, baseline, *cpu[2:])
+    d_card, s_card = d_card.cpu(), s_card.cpu()
+    both = (d_card > 0) & (d_cpu > 0)
+    mask_diff = float(((d_card > 0) != (d_cpu > 0)).double().mean())
+    err = float((d_card - d_cpu)[both].abs().max()) if bool(both.any()) else 0.0
+    if not err <= FUSED_TOL_M or not mask_diff <= FUSED_MASK_TOL:
+        raise RuntimeError(f"RGB-D: the card's fused depth is {err} m from the CPU's where both "
+                           f"are valid and the valid masks differ on {mask_diff:.2e} of the "
+                           f"pixels (bounds {FUSED_TOL_M} m, {FUSED_MASK_TOL})")
+    # the same fused depth three times into a 128^3 grid (a voxel moves by
+    # at most log_odd_occ an integration) at the keyframe's camera pose in
+    # its anchor, on the card and on the CPU
+    cfg = submap.SubmapConfig()
+    T_KC = se3.se3_multiply(
+        se3.se3_inverse(torch.as_tensor(np.asarray(T_WK), dtype=torch.float32)).double(),
+        torch.as_tensor(np.asarray(T_WC, np.float64))).float()
+    grids = {}
+    for where in ("card", "cpu"):
+        dv = dev if where == "card" else torch.device("cpu")
+        sm = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, device=dv)
+        for _ in range(3):
+            sm = submap.integrate_depth_image(sm, cfg, cam.to(device=dv), T_KC.to(dv),
+                                              d_card.float().to(dv), s_card.float().to(dv))
+        grids[where] = sm
+    a, b = grids["card"], grids["cpu"]
+    occ = {t: [set(map(tuple, (x.logodds > t).nonzero().cpu().numpy().tolist())) for x in (a, b)]
+           for t in (0.3, 1.0)}
+    if not torch.equal(a.weight.cpu(), b.weight) or any(o[0] != o[1] for o in occ.values()):
+        raise RuntimeError("RGB-D: the card's 128^3 grid differs from the CPU's: counts equal "
+                           f"{torch.equal(a.weight.cpu(), b.weight)}, occupied sets "
+                           f"{[(len(o[0]), len(o[1]), len(o[0] ^ o[1])) for o in occ.values()]}")
+    lo_err = float((a.logodds.cpu() - b.logodds).abs().max())
+    if not lo_err <= 1e-5:
+        raise RuntimeError(f"RGB-D: the card's log-odds are {lo_err} from the CPU's")
+
+    print(f"RGB-D on one keyframe's inputs ({left.shape[1]}x{left.shape[0]}): fused depth on "
+          f"{dev} vs the CPU max |err| {err:.3e} m where both are valid ({int(both.sum())} "
+          f"pixels), valid masks differ on {mask_diff:.2e}; 128^3 grid {dev} vs CPU: counts "
+          f"equal, log-odds max |err| {lo_err:.2e}, occupied voxels (>1.0) {len(occ[1.0][0])}, "
+          f"(>0.3) {len(occ[0.3][0])}, equal ({card})")
+    if dev.type != "cuda":
+        return None
+    # device times at the keyframe's shape
+    snet, _ = stereo_net.trained(str(stereo_net.DEFAULT_WEIGHTS), 64, str(dev))
+    mnet, _ = mvs_net.trained(str(mvs_net.DEFAULT_WEIGHTS), str(dev))
+    fxfycxcy = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]])
+    T_sr7 = se3.se3_inverse(T_rs)
+    M = torch.eye(4, device=dev).repeat(2, 1, 1)
+    M[:, :3, :3] = se3.quat_to_matrix(se3.se3_q(T_sr7))
+    M[:, :3, 3] = T_sr7[:, :3]
+    dd, ss = d_card.float().to(dev), s_card.float().to(dev)
+    sm0 = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, device=dev)
+    with torch.no_grad():
+        times = dict(
+            stereo_net_ms=time_ms(lambda: snet(left, right), 10),
+            mvs_net_ms=time_ms(lambda: mnet(left, srcs, fxfycxcy, M), 5),
+            fusion_ms=time_ms(lambda: fused_depth(left, right, fx, baseline, srcs, K, T_rs), 5),
+            integrate_ms=time_ms(lambda: submap.integrate_depth_image(
+                sm0, cfg, cam.to(device=dev), T_KC.to(dev), dd, ss), 10))
+        peaks = dict(
+            stereo_net=peak_mib(lambda: snet(left, right)),
+            mvs_net=peak_mib(lambda: mnet(left, srcs, fxfycxcy, M)),
+            integrate=peak_mib(lambda: submap.integrate_depth_image(
+                sm0, cfg, cam.to(device=dev), T_KC.to(dev), dd, ss)))
+    _, p_K, ok = submap.depth_rays(cam.to(device=dev), T_KC.to(dev), dd, 4, 20.0)
+    n_rays = int(ok.numel())
+    print(f"RGB-D device times at {left.shape[1]}x{left.shape[0]} (CUDA events, mean of the "
+          f"calls): StereoNet "
+          f"{times['stereo_net_ms']:.3f} ms, MvsNet {times['mvs_net_ms']:.3f} ms, stereo + MVS "
+          f"+ fusion {times['fusion_ms']:.3f} ms, one integration of {n_rays} rays x "
+          f"{cfg.samples_per_ray + cfg.band_samples} samples into the 128^3 grid "
+          f"{times['integrate_ms']:.3f} ms; peak memory above the inputs: StereoNet "
+          f"{peaks['stereo_net']:.1f} MiB, MvsNet {peaks['mvs_net']:.1f} MiB, one integration "
+          f"{peaks['integrate']:.1f} MiB ({card})")
+    return times
+
+
+def depth_phase(dev, card, mode):
+    """The port's app in `mode` (rgbd or depth), as a user runs it, on the
+    phase's dataset (`depth_dataset`): RGBD_FRAMES frames of the 0.8 m
+    circuit with depth0/ (rgbd) or DEPTH_FRAMES frames of the sinusoid scene
+    with cam0 an rgb camera and DEPTH_SE2 (depth), both at 752x480, under
+    build/<mode>_phase/, `okvis2x_app.main(--mode <mode> --reader xdataset)`
+    on the default device (cuda:0) or on `dev` when that is the CPU.  Checks
+    the ATEs, the depth priors, the keyframes fused, map.ply and the grids
+    (`grid_stats`) against the JAX app's on the same frames (JAX_DEPTH), RGB
+    in map.ply in depth mode; in rgbd mode on the card also
+    `depth_device_checks`.  Prints the stage means, the peak memory and the
+    launches by site; returns them."""
+    import os
+
+    import torch
+    from okvis2x_tpu_torch.apps import okvis2x_app
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.pipeline.submapping import SubmappingInterface
+    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
+    from okvis2x_tpu_torch.utils import timing
+
+    what = "RGB-D" if mode == "rgbd" else "depth mode"
+    n_frames = RGBD_FRAMES if mode == "rgbd" else DEPTH_FRAMES
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"{mode}_phase")
+    t0 = time.perf_counter()
+    ds_dir, argv = depth_dataset(root, mode, n_frames)
+    t_data = time.perf_counter() - t0
+    out = os.path.join(root, "out")
+    start_mib = None
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    else:
+        start_mib = torch.cuda.memory_allocated(dev) / 2**20
+        torch.cuda.reset_peak_memory_stats(dev)
+    timing.reset()
+    hamming.reset_launch_counts()
+    t0 = time.perf_counter()
+    with DepthRecorder(VioPipeline, SubmappingInterface) as rec, FusionCapture() as cap:
+        okvis2x_app.main(argv)
+    t_run = time.perf_counter() - t0
+    sites = dict(hamming.hamming_match.site_launches)
+    ERRORS.check(what)
+    vio = rec.pipe
+    if vio.device != dev:
+        raise RuntimeError(f"{what}: the app ran on {vio.device}, not {dev}")
+    m = depth_metrics(rec, ds_dir, out)
+    ref = JAX_DEPTH[mode]
+    if m["n_frames"] != n_frames:
+        raise RuntimeError(f"{what}: trajectory.tum has {m['n_frames']} rows for {n_frames}")
+    bounds = {k: max(2.0 * ref[k], 0.05) for k in ("ate_online_m", "ate_final_m")}
+    for k, b in bounds.items():
+        if not m[k] <= min(b, ATE_LIMIT_M):
+            raise RuntimeError(f"{what}: {k} {m[k]} exceeds {min(b, ATE_LIMIT_M)} m (twice the "
+                               f"JAX app's {ref[k]} m, floor 0.05 m, and at most {ATE_LIMIT_M})")
+    if mode == "rgbd" and not m["n_priors"] > 0:
+        raise RuntimeError(f"{what}: no depth prior was attached")
+    if not m["n_integrated"] >= ref["n_integrated"]:
+        raise RuntimeError(f"{what}: {m['n_integrated']} keyframes integrated, the JAX app "
+                           f"{ref['n_integrated']}")
+    if not abs(m["map_points"] - ref["map_points"]) <= MAP_POINTS_TOL * ref["map_points"]:
+        raise RuntimeError(f"{what}: map.ply has {m['map_points']} points, the JAX app's "
+                           f"{ref['map_points']} (tolerance {MAP_POINTS_TOL:.0%})")
+    if m["n_submaps"] != ref["n_submaps"]:
+        raise RuntimeError(f"{what}: {m['n_submaps']} submaps, the JAX app {ref['n_submaps']}")
+    for k in ("total_weight", "logodds_sum", "observed_voxels", "positive_voxels"):
+        if not (ref[k] != 0 and abs(m[k] - ref[k]) <= GRID_TOL * abs(ref[k])):
+            raise RuntimeError(f"{what}: the grids' {k} is {m[k]}, the JAX app's {ref[k]} "
+                               f"(tolerance {GRID_TOL:.0%})")
+    if mode == "depth" and not (m["map_points"] > 0 and m["map_rgb"]):
+        raise RuntimeError(f"{what}: map.ply has {m['map_points']} points, RGB {m['map_rgb']}")
+    if dev.type == "cuda" and sites.get("assoc", 0) <= 0:
+        raise RuntimeError(f"{what}: the fused kernel's launches by site {sites} lack the "
+                           "association")
+    ms = np.asarray(rec.wall) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None)
+    stage = "9 DepthFusionAndIntegrate" if mode == "rgbd" else "9 DepthAndIntegrate"
+    print(f"{what}: dataset of {n_frames} frames with depth0/ written in {t_data:.1f} s; "
+          f"okvis2x_app --mode {mode} on {vio.device}: {t_run:.1f} s; ATE online "
+          f"{m['ate_online_m']:.4f} m (bound {min(bounds['ate_online_m'], ATE_LIMIT_M):.4f}), "
+          f"final {m['ate_final_m']:.4f} m (bound {min(bounds['ate_final_m'], ATE_LIMIT_M):.4f}) "
+          f"over {m['n_final']} states; {m['n_priors']} depth priors attached; "
+          f"{m['n_integrated']} keyframes integrated (JAX app {ref['n_integrated']}); map.ply "
+          f"{m['map_points']} points, RGB {m['map_rgb']} (JAX app {ref['map_points']}); grids: "
+          f"{m['n_submaps']} submaps, counts {m['total_weight']:.0f} (JAX app "
+          f"{ref['total_weight']:.0f}), log-odds sum {m['logodds_sum']:.1f} "
+          f"({ref['logodds_sum']:.1f}), observed {m['observed_voxels']} "
+          f"({ref['observed_voxels']}), log-odds > 0 {m['positive_voxels']} "
+          f"({ref['positive_voxels']}), > 1.0 {m['voxels_above_1']} "
+          f"({ref['voxels_above_1']}); ms/frame "
+          f"p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max {ms.max():.1f}; "
+          f"{stage} mean {timing.mean_ms(stage):.2f} ms, window solve (2.5 CollectSolve) mean "
+          f"{timing.mean_ms('2.5 CollectSolve'):.2f} ms, 3.2 SolveDevice mean "
+          f"{timing.mean_ms('3.2 SolveDevice'):.2f} ms; peak allocated "
+          f"{'not measured' if peak is None else f'{peak:.1f} MiB ({start_mib:.1f} at the start)'}"
+          f"; fused match launches by "
+          f"site {sites} ({card})")
+    if mode == "rgbd":
+        depth_device_checks(dev, card, cap, rec.last_integration)
+    return sites
+
+
 def drifted_circle(K, rng, radius=5.0):
     """K keyframes on a circle with drifting estimates, noisy odometry edges
     to the next two keyframes and loop edges from the last quarter to the
@@ -1721,13 +2166,17 @@ def main() -> int:
                 t0 = time.perf_counter()
                 add_sites(gnss_phase(dev, card), "gnss")
                 print(f"GNSS phase: {time.perf_counter() - t0:.1f} s")
+                for mode in ("rgbd", "depth"):
+                    t0 = time.perf_counter()
+                    add_sites(depth_phase(dev, card, mode), mode)
+                    print(f"{mode} phase: {time.perf_counter() - t0:.1f} s")
             del vio
         t0 = time.perf_counter()
         pcg_phase(dev, card, cpu_solves)
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
     # times at 704x1024, the map matching's shape; launches over phases 4-9,
-    # the app phase and the GNSS phase
+    # the app, GNSS, RGB-D and depth-mode phases
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

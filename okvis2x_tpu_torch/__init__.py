@@ -24,10 +24,12 @@ Layer map (as in okvis2x_tpu):
   solver/    batched GN/LM + Schur          graph/     sliding window,
   frontend/  detection, description,                   marginalisation
              matching, triangulation        ops/       the Hamming kernel
-  pipeline/  per-frame orchestration        io/        datasets (EuRoC,
-  parallel/  matrix-free pose-graph PCG                extended, Leica, RPG),
-  apps/      the dataset app                           configs, PNG, YAML,
-  api.py     public state types                        synthetic data, ATE
+  pipeline/  per-frame orchestration,       io/        datasets (EuRoC,
+             depth helpers, submapping                 extended, Leica, RPG),
+  parallel/  matrix-free pose-graph PCG                configs, PNG, YAML,
+  apps/      the dataset app                           synthetic data, ATE
+  models/    depth nets, census, MVS        mapping/   occupancy grid, colour
+  api.py     public state types
   convert.py state from the JAX package     utils/     timing, the
              (numpy)                                   forward-AD lock
                                             graph/component.py  map files
@@ -45,9 +47,13 @@ it, export the map); the dataset app ``apps/okvis2x_app.py`` (vio and slam
 modes on EuRoC-layout datasets with okvis2.yaml-schema configs, the
 recorder, the debug CSVs, GNSS streams) with its own PNG codec and YAML
 reader; GNSS fusion (the 4-dof alignment and its status machine, the
-asynchronous position rows) and online extrinsics calibration.  Semantic
-weighting, depth, LiDAR, submaps, the learned models, ROS2 and the
-multi-device ``parallel/`` solvers are not ported yet.
+asynchronous position rows) and online extrinsics calibration; RGB-D
+(per-keypoint depth priors and depth-initialised landmarks), the learned
+stereo and multi-view depth nets with the JAX package's shipped weights,
+and dense occupancy submaps with colour, which the app's rgbd and depth
+modes integrate keyframe by keyframe.  Semantic weighting, LiDAR, the
+brick-sparse grid, meshing, ROS2 and the multi-device ``parallel/`` solvers
+are not ported yet.
 
 The entry points run on the first CUDA device unless the caller names
 another device (``device="cpu"`` for the CPU).

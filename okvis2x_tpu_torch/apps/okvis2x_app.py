@@ -1,18 +1,28 @@
-"""Synchronous dataset app of the port: VIO or SLAM on EuRoC-layout (and
-extended) datasets.
+"""Synchronous dataset app of the port: VIO, SLAM, RGB-D and depth-network
+mapping on EuRoC-layout (and extended) datasets.
 
-Counterpart of ``apps/okvis2x_app.py`` in its ``vio`` and ``slam`` modes
-(the reference's okvis_apps/src/okvis_app_synchronous.cpp): reads an
-okvis2.yaml-schema config and a dataset directory, runs `VioPipeline`
-synchronously, writes TUM trajectories (online, and after the final BA in
-``slam`` mode) and the debug CSVs when asked, and reports the ATE against
-the ground truth when the dataset has one.  It runs on the first CUDA device
-unless ``--device`` names another (``--device cpu``).
+Counterpart of ``apps/okvis2x_app.py`` in its ``vio``, ``slam``, ``rgbd``
+and ``depth`` modes (the reference's okvis_app_synchronous.cpp,
+okvis2x_app_synchronous.cpp and okvis2x_app_network_synchronous.cpp): reads
+an okvis2.yaml-schema config and a dataset directory, runs `VioPipeline`
+synchronously, writes TUM trajectories (online, and after the final BA
+except in ``vio`` mode) and the debug CSVs when asked, and reports the ATE
+against the ground truth when the dataset has one.  It runs on the first
+CUDA device unless ``--device`` names another (``--device cpu``).
+
+``rgbd``: the dataset's ``depth0/`` stream feeds per-keypoint depth priors;
+on every keyframe the learned stereo depth and the learned multi-view depth
+against the last two of the four keyframes kept are fused by inverse
+variance and integrated into occupancy submaps.  ``depth``: the stereo
+depth alone is integrated, with cam0's image as colour when the config's
+``camera_type`` of cam0 is ``rgb``.  Both write the occupied voxels to
+``map.ply``; ``--se2-config`` sets the grid (dense up to 256^3).
 
 Usage:
   python -m okvis2x_tpu_torch.apps.okvis2x_app --dataset /path/to/MH_01 \\
-      --config okvis2.yaml [--mode vio|slam] [--reader auto|euroc|xdataset|leica|rpg] \\
-      [--output out/] [--max-frames N] [--imu-csv F] [--tracks-csv F] [--device D]
+      --config okvis2.yaml [--mode vio|slam|rgbd|depth] [--se2-config se2.yaml] \\
+      [--reader auto|euroc|xdataset|leica|rpg] [--output out/] [--max-frames N] \\
+      [--imu-csv F] [--tracks-csv F] [--device D]
   python -m okvis2x_tpu_torch.apps.okvis2x_app --synthetic-test --mode slam --output out/
   python -m okvis2x_tpu_torch.apps.okvis2x_app --record DIR --dataset SRC
 
@@ -36,11 +46,9 @@ import torch
 from okvis2x_tpu_torch import default_device
 
 # the modes of the JAX app that wait for unported parts (ROADMAP.md, A)
-UNPORTED_MODES = {
-    "depth": "the stereo depth network and submapping (A4, A5)",
-    "rgbd": "depth input, the learned depth models and submapping (A3, A4, A5)",
-    "lidar": "LiDAR submapping (A5)",
-}
+UNPORTED_MODES = {"lidar": "LiDAR submapping (A5)"}
+MODES = ["vio", "slam", "depth", "rgbd", *UNPORTED_MODES]
+KF_HISTORY = 4  # keyframes kept for the multi-view depth, the last two its sources
 
 
 def pick_reader(name: str, ds_dir: str, num_cams: int):
@@ -101,7 +109,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dataset", required=False, help="dataset dir")
     ap.add_argument("--config", default=None, help="okvis2.yaml config")
-    ap.add_argument("--mode", default="slam", choices=["vio", "slam", *UNPORTED_MODES])
+    ap.add_argument("--se2-config", default=None,
+                    help="se2.yaml submap config (its grid resolution; dense up to 256^3)")
+    ap.add_argument("--mode", default="slam", choices=MODES)
     ap.add_argument("--reader", default="auto",
                     choices=["auto", "euroc", "xdataset", "leica", "rpg"])
     ap.add_argument("--output", default="out")
@@ -119,6 +129,88 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def submapping_config(args):
+    from okvis2x_tpu_torch.pipeline.submapping import SubmappingConfig
+
+    if args.se2_config:
+        from okvis2x_tpu_torch.io.config import load_submap_config
+
+        return SubmappingConfig.from_se2(load_submap_config(args.se2_config))
+    return SubmappingConfig()
+
+
+def fused_depth(left, right, fx: float, baseline: float, srcs, K, T_rs):
+    """A keyframe's fused depth and sigma: the learned stereo depth of
+    (left, right) and the learned multi-view depth of `left` against the
+    sources `srcs` (their poses in the left camera T_rs, float32), fused by
+    inverse variance."""
+    from okvis2x_tpu_torch.models import mvs, stereo
+
+    sd = stereo.stereo_depth(left, right, fx, baseline)
+    md = mvs.mvs_depth(left, srcs, K, T_rs)
+    return stereo.fuse_depths(torch.where(sd.valid, sd.depth, 0.0), sd.sigma,
+                              torch.where(md.valid, md.depth, 0.0), md.sigma)
+
+
+class DepthMapper:
+    """The keyframe stage of the ``rgbd`` and ``depth`` modes: dense depth
+    of cam0 from the learned nets, integrated into the occupancy submaps."""
+
+    def __init__(self, mode: str, sub_cfg, cameras, T_SC, vio, device, cam0_is_colour: bool):
+        from okvis2x_tpu_torch.pipeline.submapping import SubmappingInterface
+
+        self.mode = mode
+        self.submapper = SubmappingInterface(sub_cfg, device=device)
+        self.cam = cameras[0]
+        self.T_SC = T_SC
+        self.vio = vio
+        self.device = device
+        self.colour = cam0_is_colour
+        fx, fy, cx, cy = (float(v) for v in cameras[0].fxfycxcy)
+        self.fx = fx
+        self.baseline = float(np.linalg.norm(T_SC[1][:3] - T_SC[0][:3]))
+        self.K = torch.tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=torch.float32,
+                              device=device)
+        self.hist = []  # (cam0 image on the device, T_WC) of the last keyframes
+
+    def keyframe(self, info: dict, images):
+        from okvis2x_tpu_torch.core import se3np
+        from okvis2x_tpu_torch.models import stereo
+        from okvis2x_tpu_torch.utils import timing
+
+        left, right = (torch.as_tensor(np.asarray(im, np.float32), device=self.device)
+                       for im in images[:2])
+        T_WC = se3np.se3_multiply(info["T_WS"], self.T_SC[0])
+        # the keyframe's id; frame 0 counts as missing, as in the JAX app
+        kf_fid = info.get("keyframe_fid") or info["fid"]
+        try:
+            T_WK = self.vio.est.get_state(kf_fid).T_WS
+        except KeyError:
+            T_WK = info["T_WS"]
+        if self.mode == "rgbd":
+            with timing.Timer("9 DepthFusionAndIntegrate"):
+                if len(self.hist) >= 2:
+                    srcs = torch.stack([h[0] for h in self.hist[-2:]])
+                    # the pose of each source in the reference camera frame
+                    T_rs = np.stack([se3np.se3_multiply(se3np.se3_inverse(T_WC), h[1])
+                                     for h in self.hist[-2:]])
+                    T_rs = torch.as_tensor(T_rs, dtype=torch.float32, device=self.device)
+                    d, s = fused_depth(left, right, self.fx, self.baseline, srcs, self.K, T_rs)
+                    self.submapper.integrate_depth(kf_fid, T_WK, T_WC, self.cam, d, s)
+                self.hist.append((left, T_WC))
+                del self.hist[:-KF_HISTORY]
+        else:
+            with timing.Timer("9 DepthAndIntegrate"):
+                sd = stereo.stereo_depth(left, right, self.fx, self.baseline)
+                col = None
+                if self.colour:
+                    col = np.asarray(images[0], np.float32)
+                    if col.max() > 1.5:
+                        col = col / 255.0
+                self.submapper.integrate_depth(kf_fid, T_WK, T_WC, self.cam, sd.depth,
+                                               sd.sigma, colour=col)
+
+
 def main(argv=None):
     """Run the app on `argv` (sys.argv when None); returns the online ATE
     when the dataset has ground truth, else None."""
@@ -129,6 +221,9 @@ def main(argv=None):
         raise NotImplementedError(f"--mode {args.mode} needs {UNPORTED_MODES[args.mode]}, "
                                   "not ported yet (ROADMAP.md)")
     device = default_device() if args.device is None else torch.device(args.device)
+    # the grid before anything is written: a resolution that needs the
+    # brick-sparse grid is refused
+    sub_cfg = submapping_config(args) if args.mode in ("depth", "rgbd") else None
 
     from okvis2x_tpu_torch.graph.estimator import EstimatorConfig
     from okvis2x_tpu_torch.io import synthetic, trajectory_io
@@ -137,10 +232,14 @@ def main(argv=None):
 
     os.makedirs(args.output, exist_ok=True)
     vi = None
+    cam0_is_colour = False
     if args.synthetic_test:
         ds_dir = os.path.join(args.output, "synth")
-        cam, T_SC, gt = synthetic.generate(ds_dir, duration=4.0)
+        cam, T_SC, gt = synthetic.generate(ds_dir, duration=4.0,
+                                           with_depth=(args.mode == "rgbd"))
         cameras = [cam, cam]
+        if args.reader == "auto" and args.mode == "rgbd":
+            args.reader = "xdataset"
     else:
         if not args.dataset or not args.config:
             raise SystemExit("--dataset and --config are required (or use --synthetic-test)")
@@ -150,6 +249,7 @@ def main(argv=None):
         vi = cfg_mod.load(args.config)
         cameras = [c.camera for c in vi.cameras[:2]]
         T_SC = np.stack([c.T_SC for c in vi.cameras[:2]])
+        cam0_is_colour = vi.cameras[0].is_colour
         gt = None
 
     ds = pick_reader(args.reader, ds_dir, len(cameras))
@@ -182,6 +282,11 @@ def main(argv=None):
     if args.tracks_csv:
         vio.set_tracks_csv_file(0, args.tracks_csv)
 
+    mapper = None
+    if args.mode in ("depth", "rgbd"):
+        mapper = DepthMapper(args.mode, sub_cfg, cameras, T_SC, vio, device, cam0_is_colour)
+    depth_by_t = dict(getattr(ds, "depth_frames", [])) if args.mode == "rgbd" else {}
+
     n = 0
     t0 = time.time()
     for kind, data in ds.events():
@@ -192,11 +297,18 @@ def main(argv=None):
             vio.add_gps_measurement(*data)
             continue
         if kind != "frames" or not data.paths[0]:
-            continue  # depth and LiDAR streams feed only the unported modes
+            continue  # the depth stream is read at its frame; LiDAR feeds only lidar mode
         images = [ds.load_image(p) for p in data.paths if p]
         with timing.Timer("1 ProcessFrame"):
-            info = vio.process_frame(data.t, images)
+            if args.mode == "rgbd":
+                dpath = depth_by_t.get(data.t)
+                dimgs = [ds.load_depth(dpath) if dpath else None] + [None] * (len(images) - 1)
+                info = vio.process_frame(data.t, images, depth_images=dimgs)
+            else:
+                info = vio.process_frame(data.t, images)
         n += 1
+        if mapper is not None and info["is_keyframe"] and len(images) >= 2:
+            mapper.keyframe(info, images)
         if n % 50 == 0:
             print(f"frame {n}  t={time.time() - t0:.1f}s  kf={info['is_keyframe']} "
                   f"map={info['n_map']}")
@@ -213,6 +325,8 @@ def main(argv=None):
         print(f"final BA cost: {cost:.1f}")
         fts, fTs = vio.est.full_trajectory()
         trajectory_io.write_tum(os.path.join(args.output, "final_trajectory.tum"), fts, fTs)
+    if mapper is not None:
+        mapper.submapper.export_occupied_ply(os.path.join(args.output, "map.ply"))
 
     print(timing.report())
     if gt is not None:

@@ -19,6 +19,7 @@ from okvis2x_tpu_torch.frontend.bow import HierVocabulary
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, FrameState, SlidingWindowEstimator
 from okvis2x_tpu_torch.imu.preintegration import ImuParams, Preintegrated
 from okvis2x_tpu_torch.io import config
+from okvis2x_tpu_torch.models import stereo_net
 from okvis2x_tpu_torch.pipeline.vio import PipelineConfig
 from okvis2x_tpu_torch.solver.gauss_newton import StackedCameras
 from okvis2x_tpu_torch.solver.problem import BAProblem
@@ -167,13 +168,10 @@ def estimator_state(src, dst: SlidingWindowEstimator) -> SlidingWindowEstimator:
     frames and edges, live and archived observations and landmarks, both
     IMU buffers, the chained IMU links, the priors, the held loop-closure
     frames, the correction epoch, the extrinsics and their calibration
-    prior, and the GNSS state (status, fixes, T_GW, antenna offset); the
-    frames and edges of loaded map components (negative frame ids) come
-    along with the archive.  Depth priors are not ported and must be
-    absent."""
-    if np.any(np.asarray(src.obs_depth_sigma) > 0) or np.any(
-            np.asarray(src.arch_obs_depth_sigma) > 0):
-        raise NotImplementedError("depth priors are not ported yet")
+    prior, the GNSS state (status, fixes, T_GW, antenna offset), and the
+    depth priors of the live and archived observations; the frames and
+    edges of loaded map components (negative frame ids) come along with
+    the archive."""
     dst.T_SC = np.array(src.T_SC, np.float64)
     dst.T_SC_prior = np.array(src.T_SC_prior, np.float64)
     dst.gps_status = str(src.gps_status)
@@ -194,13 +192,16 @@ def estimator_state(src, dst: SlidingWindowEstimator) -> SlidingWindowEstimator:
     for k in ("obs_fid", "obs_cam", "obs_lid", "obs_uid"):
         setattr(dst, k, np.array(getattr(src, k), np.int64))
     dst.obs_uv = np.array(src.obs_uv, np.float64).reshape(-1, 2)
-    dst.obs_sigma = np.array(src.obs_sigma, np.float64)
+    for k in ("obs_sigma", "obs_depth", "obs_depth_sigma"):
+        setattr(dst, k, np.array(getattr(src, k), np.float64))
     dst._obs_uid_next = int(src._obs_uid_next)
     dst._arch_obs_n = 0
     dst._arch_obs_reserve(len(src.arch_obs_fid))
-    for fid, cam, lid, uv, sig in zip(src.arch_obs_fid, src.arch_obs_cam, src.arch_obs_lid,
-                                      src.arch_obs_uv, src.arch_obs_sigma):
-        dst.archive_observation(int(fid), int(cam), int(lid), uv, float(sig))
+    for fid, cam, lid, uv, sig, d, dsig in zip(
+            src.arch_obs_fid, src.arch_obs_cam, src.arch_obs_lid, src.arch_obs_uv,
+            src.arch_obs_sigma, src.arch_obs_depth, src.arch_obs_depth_sigma):
+        dst.archive_observation(int(fid), int(cam), int(lid), uv, float(sig), float(d),
+                                float(dsig))
     dst.arch_lm = {int(k): np.array(v, np.float64) for k, v in src.arch_lm.items()}
     live = np.concatenate([np.asarray(src.imu_t)[:, None], src.imu_gyr, src.imu_acc], 1)
     arch = np.concatenate(
@@ -223,6 +224,30 @@ def estimator_state(src, dst: SlidingWindowEstimator) -> SlidingWindowEstimator:
     dst.lc_protected = {int(f) for f in src.lc_protected}
     dst.correction_epoch = int(src.correction_epoch)
     return dst
+
+
+def _flatten(tree, prefix="") -> dict:
+    """A nested flax parameter tree -> {'/'-joined path: array}; a flat
+    mapping passes through."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def stereo_net_params(params) -> dict:
+    """JAX `StereoNet` or `MvsNet` parameters (the nested tree that
+    `okvis2x_tpu.models.*_net.load_params` returns, or the flat npz paths
+    params/FeatureNet_0/Conv_0/kernel, ...) -> the port's ``state_dict``:
+    the modules carry the flax names, so one converter serves both nets."""
+    return stereo_net.state_dict_from_flax(_flatten(params))
+
+
+mvs_net_params = stereo_net_params
 
 
 def to_numpy(x):

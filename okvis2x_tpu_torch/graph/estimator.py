@@ -39,8 +39,14 @@ BA and the background full graph carry no GNSS rows.  Online extrinsics
 calibration (`do_extrinsics`, `do_extrinsics_final_ba`) frees T_SC under a
 prior around the initial calibration.
 
-Live submap-ICP rows and depth priors are not part of the port yet; the
-option that would enable ICP raises ``NotImplementedError``.
+RGB-D: an observation may carry a per-keypoint depth prior (`obs_depth`,
+`obs_depth_sigma`; a sigma of 0 leaves it off), kept through every filter,
+the archive and the re-expansion of archived keyframes; the window solves
+carry its rows whenever one is live.  As in the JAX package, the final BA
+and the background full graph carry none.
+
+Live submap-ICP rows are not part of the port yet; the option that would
+enable them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -130,7 +136,8 @@ class FrameState:
     pre_hold_T: Optional[np.ndarray] = None
 
 
-_OBS_COLS = ("obs_fid", "obs_cam", "obs_lid", "obs_uv", "obs_sigma", "obs_uid")
+_OBS_COLS = ("obs_fid", "obs_cam", "obs_lid", "obs_uv", "obs_sigma", "obs_depth",
+             "obs_depth_sigma", "obs_uid")
 
 
 class SlidingWindowEstimator:
@@ -170,6 +177,8 @@ class SlidingWindowEstimator:
         self.obs_lid = np.zeros((0,), np.int64)
         self.obs_uv = np.zeros((0, 2))
         self.obs_sigma = np.zeros((0,))
+        self.obs_depth = np.zeros((0,))  # per-keypoint depth prior [m]
+        self.obs_depth_sigma = np.zeros((0,))  # 0: no prior
         self.obs_uid = np.zeros((0,), np.int64)
         self._obs_uid_next = 0
 
@@ -209,7 +218,7 @@ class SlidingWindowEstimator:
         # through the arch_obs_* views) and landmark positions snapshotted
         # when pruned
         self._arch_obs_i = np.zeros((1024, 3), np.int64)  # fid, cam, lid
-        self._arch_obs_f = np.zeros((1024, 3))  # uv(2), sigma
+        self._arch_obs_f = np.zeros((1024, 5))  # uv(2), sigma, depth, depth sigma
         self._arch_obs_n = 0
         self.arch_lm: Dict[int, np.ndarray] = {}
 
@@ -629,8 +638,10 @@ class SlidingWindowEstimator:
         self.hp_W = np.vstack([self.hp_W, np.asarray(hp_W, np.float64)[None]])
         return lid
 
-    def add_observations_batch(self, fid: int, cam, lid, uv, sigma=None):
-        """Vectorised multi-observation add."""
+    def add_observations_batch(self, fid: int, cam, lid, uv, sigma=None, depth=None,
+                               depth_sigma=None):
+        """Vectorised multi-observation add; `depth` with a positive
+        `depth_sigma` attaches depth priors."""
         n = len(lid)
         if n == 0:
             return
@@ -643,6 +654,11 @@ class SlidingWindowEstimator:
             np.full(n, self.cfg.keypoint_sigma_px) if sigma is None
             else np.asarray(sigma, np.float64),
         )
+        self.obs_depth = np.append(
+            self.obs_depth, np.zeros(n) if depth is None else np.asarray(depth, np.float64))
+        self.obs_depth_sigma = np.append(
+            self.obs_depth_sigma,
+            np.zeros(n) if depth_sigma is None else np.asarray(depth_sigma, np.float64))
         self.obs_uid = np.append(
             self.obs_uid, np.arange(self._obs_uid_next, self._obs_uid_next + n)
         )
@@ -664,7 +680,8 @@ class SlidingWindowEstimator:
     # ------------------------------------------------------------- optimise
     def _build_problem(self):
         """Assemble the window problem on the device; returns (problem,
-        fid -> slot, obs uids per problem row)."""
+        fid -> slot, obs uids per problem row, whether a depth prior is
+        live)."""
         cfg = self.cfg
         K, L, C = cfg.cap_frames, cfg.cap_landmarks, self.C
         Ncap, Mcap, Rcap = cfg.cap_obs, cfg.cap_imu_links, cfg.cap_rel_edges
@@ -716,6 +733,14 @@ class SlidingWindowEstimator:
         obs_uv[:n_obs] = self.obs_uv[obs_src]
         obs_si[:n_obs] = 1.0 / self.obs_sigma[obs_src]
         obs_valid[:n_obs] = True
+        obs_depth = np.ones(Ncap)
+        obs_depth_si = np.ones(Ncap)
+        obs_depth_valid = np.zeros(Ncap, bool)
+        dsig = self.obs_depth_sigma[obs_src]
+        has_d = dsig > 0
+        obs_depth[:n_obs] = np.where(has_d, self.obs_depth[obs_src], 1.0)
+        obs_depth_si[:n_obs] = np.where(has_d, 1.0 / np.maximum(dsig, 1e-12), 1.0)
+        obs_depth_valid[:n_obs] = has_d
 
         # IMU links between consecutive chain frames, from the link cache
         chain = [i for i, f in enumerate(self.frames) if not f.pose_graph_frame]
@@ -823,7 +848,9 @@ class SlidingWindowEstimator:
             hp_W=F(hp), lm_valid=I(lm_valid),
             obs_frame=I(obs_frame), obs_cam=I(obs_cam), obs_lm=I(obs_lm),
             obs_uv=F(obs_uv), obs_sqrt_info=F(obs_si), obs_valid=I(obs_valid),
-            imu_i=I(imu_i), imu_j=I(imu_j), imu_valid=I(imu_valid),
+            obs_depth=F(obs_depth), obs_depth_si=F(obs_depth_si),
+            obs_depth_valid=I(obs_depth_valid), imu_i=I(imu_i), imu_j=I(imu_j),
+            imu_valid=I(imu_valid),
             imu_pre=pre.Preintegrated(*[F(x) for x in imu_pre_b]),
             imu_sqrt_info=F(imu_W_b),
             pose_prior_T=F(pose_prior_T), pose_prior_sqrt_info=F(pose_prior_si),
@@ -832,13 +859,13 @@ class SlidingWindowEstimator:
             rel_i=I(rel_i), rel_j=I(rel_j), rel_T=F(rel_T),
             rel_sqrt_info=F(rel_si), rel_valid=I(rel_valid),
         )
-        return p, fid2slot, self.obs_uid[obs_src]
+        return p, fid2slot, self.obs_uid[obs_src], bool(has_d.any())
 
-    def _solver_config(self, iters: int) -> gn.SolverConfig:
+    def _solver_config(self, iters: int, use_depth: bool = False) -> gn.SolverConfig:
         return gn.SolverConfig(
             max_iterations=iters, imu_params=self.cfg.imu,
             early_exit_rel=self.cfg.early_exit_rel,
-            use_ext_priors=self.cfg.do_extrinsics,
+            use_ext_priors=self.cfg.do_extrinsics, use_depth=use_depth,
         )
 
     def _clamp_held(self, fr: FrameState, T_new: np.ndarray) -> np.ndarray:
@@ -878,8 +905,8 @@ class SlidingWindowEstimator:
         if self.frames:
             self._check_gps_dropout(self.frames[-1].timestamp)
         with timing.Timer("3.1 BuildProblem"):
-            p, fid2slot, _ = self._build_problem()
-        cfg = self._solver_config(iters)._replace(estimate_landmarks=not pose_only)
+            p, fid2slot, _, use_depth = self._build_problem()
+        cfg = self._solver_config(iters, use_depth)._replace(estimate_landmarks=not pose_only)
         with timing.Timer("3.2 SolveDevice"):
             p_opt, cost = gn.optimize(p, self.cams, cfg)
             cost = float(cost)
@@ -903,8 +930,9 @@ class SlidingWindowEstimator:
         if self.frames:
             self._check_gps_dropout(self.frames[-1].timestamp)
         with timing.Timer("3.1 BuildProblem"):
-            p, fid2slot, obs_uids = self._build_problem()
-        return dict(p=p, fid2slot=fid2slot, obs_uids=obs_uids, fid=fid, gate_px=float(gate_px),
+            p, fid2slot, obs_uids, use_depth = self._build_problem()
+        return dict(p=p, fid2slot=fid2slot, obs_uids=obs_uids, use_depth=use_depth, fid=fid,
+                    gate_px=float(gate_px),
                     iters=iters, iters2=iterations2,
                     lm_lids=np.array(self.lm_ids, np.int64))
 
@@ -916,7 +944,7 @@ class SlidingWindowEstimator:
         uid.  Returns (cost, n_outliers)."""
         p, fid2slot = h["p"], h["fid2slot"]
         with timing.Timer("3.2 SolveDevice"):
-            p1, _ = gn.optimize(p, self.cams, self._solver_config(h["iters"]))
+            p1, _ = gn.optimize(p, self.cams, self._solver_config(h["iters"], h["use_depth"]))
             f, c, l = p1.obs_frame, p1.obs_cam, p1.obs_lm
             r, proj_ok = reprojection_residual(
                 self.cams.at(c), p1.T_WS[f], p1.T_SC[c], p1.hp_W[l], p1.obs_uv,
@@ -926,7 +954,8 @@ class SlidingWindowEstimator:
             out = (p1.obs_valid & (f == fid2slot.get(h["fid"], -1))
                    & (~proj_ok | (err_px > h["gate_px"])))
             p2 = p1._replace(obs_valid=p1.obs_valid & ~out)
-            p3, cost = gn.optimize(p2, self.cams, self._solver_config(h["iters2"]))
+            p3, cost = gn.optimize(p2, self.cams,
+                                   self._solver_config(h["iters2"], h["use_depth"]))
         with timing.Timer("3.3 Readback"):
             T = p3.T_WS.cpu().numpy().astype(np.float64)
             sb = p3.sb.cpu().numpy().astype(np.float64)
@@ -1233,11 +1262,19 @@ class SlidingWindowEstimator:
     def arch_obs_sigma(self):
         return self._arch_obs_f[:self._arch_obs_n, 2]
 
+    @property
+    def arch_obs_depth(self):
+        return self._arch_obs_f[:self._arch_obs_n, 3]
+
+    @property
+    def arch_obs_depth_sigma(self):
+        return self._arch_obs_f[:self._arch_obs_n, 4]
+
     def _arch_obs_reserve(self, need: int):
         if need > len(self._arch_obs_i):
             cap = max(need, 2 * len(self._arch_obs_i))
             bi = np.zeros((cap, 3), np.int64)
-            bf = np.zeros((cap, 3))
+            bf = np.zeros((cap, 5))
             bi[: self._arch_obs_n] = self._arch_obs_i[: self._arch_obs_n]
             bf[: self._arch_obs_n] = self._arch_obs_f[: self._arch_obs_n]
             self._arch_obs_i, self._arch_obs_f = bi, bf
@@ -1256,16 +1293,19 @@ class SlidingWindowEstimator:
         self._arch_obs_i[sl, 2] = self.obs_lid[mask]
         self._arch_obs_f[sl, 0:2] = self.obs_uv[mask]
         self._arch_obs_f[sl, 2] = self.obs_sigma[mask]
+        self._arch_obs_f[sl, 3] = self.obs_depth[mask]
+        self._arch_obs_f[sl, 4] = self.obs_depth_sigma[mask]
         self._arch_obs_n = need
 
-    def archive_observation(self, fid: int, cam: int, lid: int, uv, sigma: float = 1.0):
+    def archive_observation(self, fid: int, cam: int, lid: int, uv, sigma: float = 1.0,
+                            depth: float = 0.0, depth_sigma: float = 0.0):
         """Append one row to the archived-observation store (map import and
         tests; the runtime path archives in bulk with `_archive_obs`)."""
         n = self._arch_obs_n
         self._arch_obs_reserve(n + 1)
         self._arch_obs_i[n] = (fid, cam, lid)
         self._arch_obs_f[n, 0:2] = uv
-        self._arch_obs_f[n, 2] = sigma
+        self._arch_obs_f[n, 2:5] = (sigma, depth, depth_sigma)
         self._arch_obs_n = n + 1
 
     def _arch_obs_compact(self, keep: np.ndarray):
@@ -1344,6 +1384,8 @@ class SlidingWindowEstimator:
             self.obs_lid = np.append(self.obs_lid, self.arch_obs_lid[ki])
             self.obs_uv = np.vstack([self.obs_uv, self.arch_obs_uv[ki]])
             self.obs_sigma = np.append(self.obs_sigma, self.arch_obs_sigma[ki])
+            self.obs_depth = np.append(self.obs_depth, self.arch_obs_depth[ki])
+            self.obs_depth_sigma = np.append(self.obs_depth_sigma, self.arch_obs_depth_sigma[ki])
             self.obs_uid = np.append(
                 self.obs_uid, np.arange(self._obs_uid_next, self._obs_uid_next + n))
             self._obs_uid_next += n

@@ -1,0 +1,252 @@
+"""Submapping: the life cycle of keyframe-anchored occupancy submaps and the
+integration of depth images into them (torch counterpart of the depth half
+of ``okvis2x_tpu/pipeline/submapping.py``, the reference's
+SubmappingInterface).
+
+A keyframe's depth image goes into the active submap, or starts a new one
+when there is none, or when the active one has integrated enough frames and
+either more than `new_submap_kf_count` keyframes or less than
+`new_submap_overlap` of the image's points land in voxels it has already
+observed (`decide_new_submap`).  Submaps are re-anchored when their anchor
+keyframe moves (`on_state_update`) and export their occupied voxels as a
+PLY point cloud, coloured where colour was splatted.  The grids live on the
+interface's device; pose bookkeeping runs on the host with float32 anchors,
+as in the JAX package.
+
+Not ported yet (ROADMAP.md, A5): LiDAR integration, map-to-map alignment
+edges (and with them the alignment callback), mesh and VTK export, the
+brick-sparse grid of fine resolutions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from okvis2x_tpu_torch import default_device
+from okvis2x_tpu_torch.cameras import pinhole
+from okvis2x_tpu_torch.core import se3
+from okvis2x_tpu_torch.mapping import colour as col_mod
+from okvis2x_tpu_torch.mapping import submap as sm_mod
+
+_A5 = "not ported yet (ROADMAP.md, A5)"
+
+
+@dataclasses.dataclass
+class SubmappingConfig:
+    submap: sm_mod.SubmapConfig = sm_mod.SubmapConfig()
+    # the se2.yaml submap thresholds
+    new_submap_overlap: float = 0.1
+    new_submap_kf_count: int = 20
+    min_frames_integrated: int = 4
+    depth_stride: int = 4
+    max_depth: float = 20.0
+
+    @classmethod
+    def from_se2(cls, se2) -> "SubmappingConfig":
+        """The runtime config of a parsed se2.yaml (`io.config.SubMapConfig`)
+        at its `map_res`: a dense grid up to 256 voxels a side; finer grids
+        need the brick-sparse representation, which is not ported."""
+        res = se2.map_res
+        dim = int(round(max(se2.map_dim) / res))
+        if dim > 256:
+            raise NotImplementedError(
+                f"a {dim}^3 submap at {res} m needs the brick-sparse grid, {_A5}")
+        band = 0.3
+        grid = sm_mod.SubmapConfig(
+            dim=dim, res=res, log_odd_min=se2.data.log_odd_min,
+            log_odd_max=se2.data.log_odd_max, surface_band=band,
+            band_samples=max(8, int(1.5 * band / res) + 1))
+        return cls(
+            submap=grid,
+            new_submap_overlap=se2.submap_overlap_ratio,
+            new_submap_kf_count=se2.submap_kf_threshold,
+            min_frames_integrated=se2.submap_min_frames,
+            depth_stride=max(1, se2.depth_image_res_downsampling),
+            max_depth=se2.far_plane if se2.far_plane > 0 else 20.0,
+        )
+
+
+@dataclasses.dataclass
+class SubmapEntry:
+    sid: int
+    anchor_fid: int  # the keyframe that anchors T_WK
+    sm: sm_mod.Submap
+    n_frames: int = 0
+    kf_ids: set = dataclasses.field(default_factory=set)
+    finished: bool = False
+    col: Optional[col_mod.ColourStore] = None  # per-voxel colour, once splatted
+
+
+def _f32(T) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(T, np.float64), dtype=torch.float32)
+
+
+class SubmappingInterface:
+    """Host orchestration of the occupancy submaps on `device` (None: the
+    first CUDA device; raises without one)."""
+
+    def __init__(self, cfg: SubmappingConfig, align_callback: Optional[Callable] = None,
+                 device=None):
+        sm_mod.check_dense(cfg.submap)
+        if align_callback is not None:
+            raise NotImplementedError(f"map-to-map alignment edges are {_A5}")
+        self.cfg = cfg
+        self.device = default_device() if device is None else torch.device(device)
+        self.maps: List[SubmapEntry] = []
+        self._next_sid = 0
+
+    @property
+    def active(self) -> Optional[SubmapEntry]:
+        return self.maps[-1] if self.maps else None
+
+    # ------------------------------------------------------------ life cycle
+    def _overlap_fraction(self, entry: SubmapEntry, pts_W: torch.Tensor,
+                          good: torch.Tensor) -> float:
+        """Fraction of the good points (world frame, float32) that land in
+        voxels the submap has observed."""
+        n = int(good.sum())
+        if n == 0:
+            return 0.0
+        T_KW = se3.se3_inverse(entry.sm.T_WK)
+        seen = sm_mod.observed_mask(entry.sm, self.cfg.submap, se3.se3_apply(T_KW, pts_W))
+        return float(torch.sum(seen & good).to(torch.float32) / n)
+
+    def decide_new_submap(self, kf_fid: int, pts_W: torch.Tensor, good: torch.Tensor) -> bool:
+        """New when there is none; else, once the active one has integrated
+        `min_frames_integrated` frames, for a keyframe it has not seen: when
+        more than `new_submap_kf_count` keyframes went in, or when less than
+        `new_submap_overlap` of the points `pts_W` (those where `good`)
+        land in observed voxels."""
+        a = self.active
+        if a is None:
+            return True
+        if a.n_frames < self.cfg.min_frames_integrated or kf_fid in a.kf_ids:
+            return False
+        if len(a.kf_ids) > self.cfg.new_submap_kf_count:
+            return True
+        return self._overlap_fraction(a, pts_W, good) < self.cfg.new_submap_overlap
+
+    def start_submap(self, kf_fid: int, T_WK: np.ndarray) -> SubmapEntry:
+        if self.active is not None:
+            self.finish_submap()
+        e = SubmapEntry(sid=self._next_sid, anchor_fid=kf_fid,
+                        sm=sm_mod.new_submap(_f32(T_WK), self.cfg.submap, device=self.device))
+        self._next_sid += 1
+        self.maps.append(e)
+        return e
+
+    def finish_submap(self):
+        a = self.active
+        if a is not None:
+            a.finished = True
+
+    # ------------------------------------------------------------ integrate
+    def _decision_points(self, cam: pinhole.Camera, T_WC: np.ndarray, depth: torch.Tensor):
+        """The points of a sparse pixel grid (every 4 * depth_stride
+        pixels) in the world, float32 as the JAX package takes them, and
+        which of them count (depth in (0.05, max_depth))."""
+        s = self.cfg.depth_stride * 4
+        H, W = depth.shape
+        dev = self.device
+        yy, xx = torch.meshgrid(torch.arange(0, H, s, device=dev),
+                                torch.arange(0, W, s, device=dev), indexing="ij")
+        cam = cam.to(device=dev)
+        uv = torch.stack([xx, yy], dim=-1).reshape(-1, 2).to(cam.fxfycxcy.dtype)
+        d = depth[::s, ::s].reshape(-1)
+        ray, ok = pinhole.back_project(cam, uv)
+        p_C = (ray / ray[:, 2:3] * d[:, None].to(ray.dtype)).to(torch.float32)
+        good = ok & (d > 0.05) & (d < self.cfg.max_depth)
+        p_C = torch.where(good[:, None], p_C, torch.zeros_like(p_C))
+        return se3.se3_apply(_f32(T_WC).to(dev), p_C), good
+
+    def integrate_depth(self, kf_fid: int, T_WK: np.ndarray, T_WC: np.ndarray,
+                        cam: pinhole.Camera, depth, sigma=None, colour=None):
+        """Integrate a metric depth image (H, W) taken at camera pose T_WC
+        (0 / inf invalid; numpy or a tensor), with its sigma (default
+        0.01 d^2); `colour` (H, W) grey or (H, W, 3) rgb in [0, 1] is
+        splatted into the ray end points' voxels."""
+        dev = self.device
+        depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
+        sigma = (0.01 * depth * depth if sigma is None
+                 else torch.as_tensor(sigma, dtype=torch.float32, device=dev))
+        pts_W, good = self._decision_points(cam, T_WC, depth)
+        if self.decide_new_submap(kf_fid, pts_W, good):
+            self.start_submap(kf_fid, T_WK)
+        a = self.active
+        # T_KC from the float32 anchor, as the JAX package composes it
+        T_KC = se3.se3_multiply(se3.se3_inverse(a.sm.T_WK.cpu()).double(),
+                                torch.as_tensor(np.asarray(T_WC, np.float64)))
+        T_KC = T_KC.to(device=dev, dtype=torch.float32)
+        cfg = self.cfg
+        a.sm = sm_mod.integrate_depth_image(a.sm, cfg.submap, cam, T_KC, depth, sigma,
+                                            stride=cfg.depth_stride, max_depth=cfg.max_depth)
+        a.n_frames += 1
+        a.kf_ids.add(kf_fid)
+        if colour is not None:
+            col = torch.as_tensor(np.asarray(colour), dtype=torch.float32, device=dev)
+            if col.ndim == 2:
+                col = col[..., None].expand(*col.shape, 3)
+            if a.col is None:
+                a.col = col_mod.new_store(cfg.submap, device=dev)
+            _, p_K, ok = sm_mod.depth_rays(cam, T_KC, depth, cfg.depth_stride, cfg.max_depth)
+            s = cfg.depth_stride
+            a.col = col_mod.splat(a.col, cfg.submap, p_K, col[::s, ::s].reshape(-1, 3), ok)
+
+    def integrate_lidar(self, *args, **kwargs):
+        raise NotImplementedError(f"LiDAR integration is {_A5}")
+
+    def make_alignment_edge(self, *args, **kwargs):
+        raise NotImplementedError(f"map-to-map alignment edges are {_A5}")
+
+    # ------------------------------------------------------------- updates
+    def on_state_update(self, states: Dict[int, np.ndarray]):
+        """Re-anchor the submaps whose anchor keyframe moved (loop-closure
+        corrections)."""
+        for e in self.maps:
+            if e.anchor_fid in states:
+                e.sm = e.sm._replace(T_WK=_f32(states[e.anchor_fid]).to(self.device))
+
+    # -------------------------------------------------------------- export
+    def export_occupied_ply(self, path: str, threshold: float = 1.0) -> int:
+        """Write all submaps' occupied voxel centres (world frame) as an
+        ASCII PLY, with per-vertex RGB (grey for submaps without colour)
+        when colour was integrated; returns the vertex count."""
+        all_pts, all_cols = [], []
+        any_colour = any(e.col is not None for e in self.maps)
+        for e in self.maps:
+            centres, occ = sm_mod.occupied_point_list(e.sm, self.cfg.submap, threshold,
+                                                      max_points=65536)
+            pts_K = centres[occ]
+            if not len(pts_K):
+                continue
+            all_pts.append(se3.se3_apply(e.sm.T_WK, pts_K).cpu().numpy())
+            if any_colour:
+                all_cols.append(
+                    col_mod.colour_at(e.col, self.cfg.submap, pts_K).cpu().numpy()
+                    if e.col is not None else np.full((len(pts_K), 3), 0.5, np.float32))
+        pts = np.concatenate(all_pts) if all_pts else np.zeros((0, 3), np.float32)
+        cols = (np.clip(np.concatenate(all_cols) * 255, 0, 255).astype(np.uint8)
+                if any_colour and all_cols else None)
+        with open(path, "w") as f:
+            f.write("ply\nformat ascii 1.0\n" f"element vertex {len(pts)}\n"
+                    "property float x\nproperty float y\nproperty float z\n")
+            if cols is not None:
+                f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+            f.write("end_header\n")
+            for i, p in enumerate(pts):
+                if cols is not None:
+                    f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f} "
+                            f"{cols[i, 0]} {cols[i, 1]} {cols[i, 2]}\n")
+                else:
+                    f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}\n")
+        return len(pts)
+
+    def export_mesh_ply(self, *args, **kwargs):
+        raise NotImplementedError(f"mesh export is {_A5}")
+
+    def export_vtk_bboxes(self, *args, **kwargs):
+        raise NotImplementedError(f"the VTK bounding-box export is {_A5}")

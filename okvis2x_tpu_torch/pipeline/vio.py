@@ -67,8 +67,16 @@ GNSS fixes (`add_gps_measurement`) go to the estimator.  Under online
 extrinsics calibration each frame's post-solve stage copies the calibrated
 extrinsics into the host-side projections.
 
-Semantic weighting (also inside the fused frontend) and depth input are not
-part of the port yet; enabling them raises ``NotImplementedError``.
+RGB-D: `process_frame(..., depth_images=[...])` samples each camera's depth
+image (metres, registered to that camera) at the frame's observations and
+attaches per-keypoint depth priors (`attach_depth_priors`, sigma =
+`depth_sigma0` + `depth_sigma_scale` d^2), and creates landmarks for the
+keypoints left unassigned straight from their depth (`depth_initialize`),
+after the keyframe decision, on the synchronous, pipelined and deferred
+paths alike (the deferred path once the frame's critical block is consumed).
+
+Semantic weighting (also inside the fused frontend) is not part of the port
+yet; enabling it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -131,6 +139,12 @@ class PipelineConfig:
     vocab_path: Optional[str] = None
     p_dbow: float = 0.4
     p_prominence: float = 1.15
+    # RGB-D: per-keypoint depth priors from depth images, sigma(d) =
+    # depth_sigma0 + depth_sigma_scale * d^2 for depth_min < d < depth_max
+    depth_sigma0: float = 0.02
+    depth_sigma_scale: float = 0.0025
+    depth_min: float = 0.1
+    depth_max: float = 25.0
     loop_min_gap_s: float = 5.0
     loop_min_inliers: int = 15
     loop_cooldown_m: float = 3.0
@@ -1221,6 +1235,79 @@ class VioPipeline:
         return sel[best][0], T, int(n_inl_b[best]), pairs
 
     # ------------------------------------------------------------ frame loop
+    # ------------------------------------------------------------------ RGB-D
+    def _sample_depth(self, depth_img: np.ndarray, uv: np.ndarray):
+        """Nearest-pixel depth lookup (numpy's round, half to even);
+        returns (d (n,), valid (n,))."""
+        cfg = self.cfg
+        h, w = depth_img.shape[:2]
+        x = np.clip(np.round(uv[:, 0]).astype(int), 0, w - 1)
+        y = np.clip(np.round(uv[:, 1]).astype(int), 0, h - 1)
+        d = np.asarray(depth_img)[y, x].astype(np.float64)
+        valid = np.isfinite(d) & (d > cfg.depth_min) & (d < cfg.depth_max)
+        return d, valid
+
+    def _depth_sigma(self, d: np.ndarray) -> np.ndarray:
+        return self.cfg.depth_sigma0 + self.cfg.depth_sigma_scale * d * d
+
+    def attach_depth_priors(self, fid: int, depth_images) -> int:
+        """Sample each camera's depth image at frame `fid`'s observation
+        pixels and activate their depth priors; returns how many."""
+        est = self.est
+        n = 0
+        for c, dimg in enumerate(depth_images):
+            if dimg is None:
+                continue
+            sel = np.nonzero((est.obs_fid == fid) & (est.obs_cam == c))[0]
+            if len(sel) == 0:
+                continue
+            d, ok = self._sample_depth(dimg, est.obs_uv[sel])
+            rows = sel[ok]
+            est.obs_depth[rows] = d[ok]
+            est.obs_depth_sigma[rows] = self._depth_sigma(d[ok])
+            n += len(rows)
+        return n
+
+    def depth_initialize(self, fid: int, frame_data: List[FrameData], depth_images) -> int:
+        """Create landmarks for the valid keypoints without one from their
+        depth (the ray scaled to the sampled depth, in the world), keypoint
+        by keypoint up to the landmark capacity, each with its observation
+        and depth prior; returns how many."""
+        est = self.est
+        T_WS = est.get_state(fid).T_WS
+        n_new = 0
+        cap_left = est.cfg.cap_landmarks - len(est.lm_ids)
+        for c, (fd, dimg) in enumerate(zip(frame_data, depth_images)):
+            if dimg is None:
+                continue
+            un = np.nonzero((fd.lid < 0) & fd.valid)[0]
+            if len(un) == 0:
+                continue
+            d, ok = self._sample_depth(dimg, fd.uv[un])
+            un, d = un[ok], d[ok]
+            if len(un) == 0:
+                continue
+            rays, rv = pinhole_np.back_project(self.np_cameras[c], fd.uv[un])
+            T_WC = se3np.se3_multiply(T_WS, self.T_SC[c])
+            new_lid, new_k, new_d = [], [], []
+            for k in range(len(un)):
+                if n_new >= cap_left or not rv[k]:
+                    continue
+                lid = est.add_landmark(np.r_[se3np.se3_apply(T_WC, rays[k] * d[k]), 1.0])
+                if lid < 0:
+                    continue
+                fd.lid[un[k]] = lid
+                self._set_landmark_desc(lid, fd, int(un[k]))
+                new_lid.append(lid)
+                new_k.append(un[k])
+                new_d.append(d[k])
+                n_new += 1
+            if new_lid:
+                new_d = np.asarray(new_d)
+                est.add_observations_batch(fid, c, new_lid, fd.uv[np.asarray(new_k)],
+                                           depth=new_d, depth_sigma=self._depth_sigma(new_d))
+        return n_new
+
     def add_imu_measurement(self, t, gyr, acc):
         if self._imu_csv is not None:
             self._imu_csv.add(t, gyr, acc)
@@ -1373,15 +1460,14 @@ class VioPipeline:
         return looped
 
     def process_frame(self, t: float, images: List[np.ndarray], depth_images=None):
-        """One stereo frame.  Returns the frame's info; with `pipelined_solve`
-        its pose is the IMU prediction (the solved pose replaces it in
+        """One stereo frame, with an optional depth image (metres) or None
+        per camera.  Returns the frame's info; with `pipelined_solve` its
+        pose is the IMU prediction (the solved pose replaces it in
         `states_log` when the solve is collected) and `loop_closure` is
         False (closures are applied while collecting the previous frame).
         With `deferred_frontend` see `_process_frame_deferred`."""
-        if depth_images is not None:
-            raise NotImplementedError("depth input is not ported yet")
         if self.cfg.deferred_frontend:
-            return self._process_frame_deferred(t, images)
+            return self._process_frame_deferred(t, images, depth_images)
         est = self.est
         if self._pending is None:
             # fold a finished background optimisation in before the window
@@ -1407,6 +1493,9 @@ class VioPipeline:
         est.set_keyframe(fid, is_kf)
         if is_kf:
             self.last_kf_fid = fid
+        if depth_images is not None:
+            self.attach_depth_priors(fid, depth_images)
+            n_stereo += self.depth_initialize(fid, frame_data, depth_images)
         # the previous frame's solve, then this frame's prediction again from
         # the corrected state
         self._collect_pending()
@@ -1438,7 +1527,7 @@ class VioPipeline:
         return self._upload(self._pack_images(images))
 
     def frontend_dispatch(self, fid: int, t: float, imgs_d: torch.Tensor,
-                          T_WS_pred: np.ndarray) -> dict:
+                          T_WS_pred: np.ndarray, depth_images=None) -> dict:
         """Launch this frame's fused frontend, `imgs_d` from
         `_stage_images`: detection, description and association of every
         camera as one chain of launches on the current stream with no host
@@ -1446,7 +1535,8 @@ class VioPipeline:
         handle that `frontend_consume` takes once the cycle's critical block
         has landed: the critical block `crit`, a float64 vector [uv (C, N,
         2) | valid (C, N) | ASSOC_KEYS], and the descriptor block `desc`
-        (C, N, 12) int32, both on the device."""
+        (C, N, 12) int32, both on the device; the frame's depth images ride
+        along to the consume."""
         st = self._assoc_stage(T_WS_pred)
         s = self._stage_device(T_WS_pred, st)
         uv, valid, packed = self._detect_describe_device(
@@ -1454,7 +1544,8 @@ class VioPipeline:
         res = self._assoc_core(uv.to(self.est.cfg.dtype), valid, packed, s)
         crit = torch.cat([uv.reshape(-1).to(torch.float64), valid.reshape(-1).to(torch.float64)]
                          + [res[k].reshape(-1).to(torch.float64) for k in ASSOC_KEYS])
-        return dict(fid=fid, t=t, crit=crit, desc=packed, stage=st, log_idx=len(self.states_log))
+        return dict(fid=fid, t=t, crit=crit, desc=packed, stage=st, log_idx=len(self.states_log),
+                    depth_images=depth_images)
 
     def frontend_consume(self, h: dict, crit: np.ndarray):
         """Consume a landed critical block: the frame's keypoints (its
@@ -1571,6 +1662,9 @@ class VioPipeline:
         self._kf_event = (fid, is_kf)
         if is_kf:
             self.last_kf_fid = fid
+        if front["depth_images"] is not None:
+            self.attach_depth_priors(fid, front["depth_images"])
+            self.depth_initialize(fid, frame_data, front["depth_images"])
         self._solve_todo = dict(fid=fid, t=t, is_kf=is_kf, log_idx=front["log_idx"])
 
     def _consume_rest(self, item: dict):
@@ -1594,7 +1688,8 @@ class VioPipeline:
         if solved:
             est.repredict_after(max(solved))
 
-    def _process_frame_deferred(self, t: float, images: List[np.ndarray]) -> dict:
+    def _process_frame_deferred(self, t: float, images: List[np.ndarray],
+                                depth_images=None) -> dict:
         """One frame under the deferred frontend.  Consume the cycles due
         (`pipeline_depth` stay in flight; one while the map is empty or in
         the first `pipeline_ramp_frames` frames), strictly in order: the
@@ -1630,7 +1725,7 @@ class VioPipeline:
             f = est.get_state(fid)
         self._drain_desc()
         with timing.Timer("2.2 FrontDispatch"):
-            h_front = self.frontend_dispatch(fid, t, imgs_d, f.T_WS)
+            h_front = self.frontend_dispatch(fid, t, imgs_d, f.T_WS, depth_images)
         self._dispatch_pending_solve()
         nxt = self._next_solve or {}
         self._next_solve = None

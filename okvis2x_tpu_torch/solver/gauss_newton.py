@@ -12,11 +12,12 @@ Torch counterpart of ``okvis2x_tpu/solver/gauss_newton.py``:
   * landmark blocks are accumulated per landmark with ``index_add_`` and
     eliminated by a batched Schur complement with closed-form 3x3 inverses;
   * robustification is IRLS with the sqrt(rho') corrector;
+  * per-keypoint depth priors (``use_depth``) share the observation rows
+    and fold into the same Schur-eliminated landmark blocks;
   * the LM loop uses deferred accept/reject ("one linearisation per
     iteration") and an optional early exit on converged accepted steps.
 
-Depth priors and submap-ICP rows are not part of the port yet: a problem
-that carries depth priors raises ``NotImplementedError``.
+Submap-ICP rows are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from torch.func import jacfwd, vmap
 
 from okvis2x_tpu_torch.cameras.pinhole import Camera
 from okvis2x_tpu_torch.core import se3
-from okvis2x_tpu_torch.factors import gps, imu_factor, priors, reprojection, robust
+from okvis2x_tpu_torch.factors import depth, gps, imu_factor, priors, reprojection, robust
 from okvis2x_tpu_torch.imu.preintegration import ImuParams
 from okvis2x_tpu_torch.solver.problem import BAProblem, apply_delta, free_mask
 from okvis2x_tpu_torch.utils import forward_ad
@@ -87,15 +88,14 @@ class SolverConfig(NamedTuple):
     rel_loss_scale: float = 10.0
     # online extrinsics calibration: add the T_SC prior rows
     use_ext_priors: bool = False
+    # per-keypoint depth priors (the reference's one-sided DepthError);
+    # use_depth adds their rows (the caller knows whether any is valid)
+    depth_onesided: bool = True
+    use_depth: bool = False
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M @ v[..., None])[..., 0]
-
-
-def _check_ported(p: BAProblem):
-    if bool(p.obs_depth_valid.any()):
-        raise NotImplementedError("depth priors are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +158,26 @@ def _linearize_reprojection(p: BAProblem, cams: StackedCameras):
     Jrow.scatter_(2, cols_f, Jp)
     Jrow.scatter_(2, cols_e, Je)
     return r, Jrow, Jh, valid & p.obs_valid
+
+
+def _linearize_depth(p: BAProblem, cfg: SolverConfig):
+    """Depth priors on the observation rows: (r (N,1), Jrow (N,1,P),
+    Jh (N,1,3), valid (N,))."""
+    K, P = p.K, p.P
+    f, c = p.obs_frame, p.obs_cam
+
+    def one(T_WS, T_SC, hp, d, si):
+        return depth.linearize(T_WS, T_SC, hp, d, si, cfg.depth_onesided)
+
+    with forward_ad.LOCK:
+        r, Jp, Jl, Je = vmap(one)(p.T_WS[f], p.T_SC[c], p.hp_W[p.obs_lm], p.obs_depth,
+                                  p.obs_depth_si)
+    N = r.shape[0]
+    Jrow = torch.zeros((N, 1, P), dtype=r.dtype, device=r.device)
+    ar6 = torch.arange(6, device=r.device)
+    Jrow.scatter_(2, (f[:, None] * 15 + ar6)[:, None, :], Jp[:, None, :])
+    Jrow.scatter_(2, (K * 15 + c[:, None] * 6 + ar6)[:, None, :], Je[:, None, :])
+    return r[:, None], Jrow, Jl[:, None, :], p.obs_depth_valid & p.obs_valid
 
 
 def _linearize_imu(p: BAProblem, cfg: SolverConfig):
@@ -339,6 +359,22 @@ def linearize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Lineariz
         0, p.obs_lm, Wn
     )
 
+    # depth priors: the same observation rows, folded into the same blocks
+    if cfg.use_depth:
+        r_d, Jrow_d, Jh_d, valid_d = _linearize_depth(p, cfg)
+        md = valid_d.to(dtype)[:, None]
+        r_d = r_d * md
+        Jrow_d = Jrow_d * md[..., None] * fmask
+        Jh_d = Jh_d * md[..., None] * lm_free.to(dtype)[p.obs_lm][:, None, None]
+        Jd = Jrow_d.reshape(-1, P)
+        rd = r_d.reshape(-1)
+        H_ff = H_ff + Jd.T @ Jd
+        b_f = b_f - Jd.T @ rd
+        cost = cost + 0.5 * torch.sum(rd * rd)
+        H_ll.index_add_(0, p.obs_lm, torch.einsum("nri,nrj->nij", Jh_d, Jh_d))
+        b_l.index_add_(0, p.obs_lm, -torch.einsum("nri,nr->ni", Jh_d, r_d))
+        W.index_add_(0, p.obs_lm, torch.einsum("nrp,nri->npi", Jrow_d, Jh_d))
+
     # priors, IMU links, relative-pose edges, GNSS fixes and extrinsics
     # priors: blocks added to the reduced system (the columns of frozen
     # parameters are cleared by the gauge fixing below); families of zero
@@ -374,6 +410,12 @@ def compute_cost(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> torch
     valid = (valid & p.obs_valid).to(dtype)
     s = torch.sum(r_o * r_o, dim=-1)
     cost = 0.5 * torch.sum(robust.rho(cfg.reproj_loss, s, cfg.reproj_loss_scale) * valid)
+
+    if cfg.use_depth:
+        r_d = depth.residual(p.T_WS[f], p.T_SC[c], p.hp_W[l], p.obs_depth, p.obs_depth_si,
+                             cfg.depth_onesided)
+        vd = (p.obs_depth_valid & p.obs_valid).to(dtype)
+        cost = cost + 0.5 * torch.sum((r_d * vd) ** 2)
 
     if p.imu_i.shape[0]:
         i, j = p.imu_i, p.imu_j
@@ -493,7 +535,6 @@ def optimize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Tuple[BAP
     """LM with deferred accept/reject: one linearisation per iteration, whose
     cost doubles as the accept test of the previous step.  Returns the
     optimised problem and the final robust cost."""
-    _check_ported(p)
     dtype, dev = p.T_WS.dtype, p.T_WS.device
 
     def state(prob):

@@ -2,9 +2,10 @@
 EuRoC-layout dataset written by the JAX package's generator and one
 okvis2.yaml-schema config, in `vio` mode on the CPU (the JAX app in a
 process of its own on two cores), and again on an extended-layout dataset
-with a GNSS stream and online extrinsics calibration in the config; the
-`slam` mode on a synthetic dataset; the recorder; the config's calibration
-sigmas; and what the port refuses (the unported modes, a missing CUDA
+with a GNSS stream and online extrinsics calibration in the config, and on
+one with a depth0/ stream in the `rgbd` and `depth` modes; the `slam` mode
+on a synthetic dataset; the recorder; the config's calibration sigmas; and
+what the port refuses (LiDAR, the brick-sparse grid, meshes, a missing CUDA
 device)."""
 
 import filecmp
@@ -34,6 +35,19 @@ GNSS_FRAMES = 12
 # quaternion entries, T_SC likewise) and 1e-5 m on the positions of the TUM files
 GNSS_TOL = 1e-6
 GNSS_POS_TOL_M = 1e-5
+# the depth modes: 8 frames at 320x240 and 10 Hz with depth0/ (every frame a
+# keyframe: the rgbd mode fuses from the third keyframe on); the trajectories
+# agree to 1e-7 m over these frames (the packages part at the ninth, where a
+# descriptor bit differs), held to 1e-5 m.  The submaps' grids: integration
+# counts equal on all but 1e-4 of the voxels and log-odds within 1e-5 on the
+# others (a ray sample on a voxel boundary moves with an ulp of the float32
+# keyframe anchor, which XLA inverts with fused multiply-adds); map.ply's
+# voxel centres as sets, the symmetric difference within 2% of the JAX app's
+# points, the colours of the common points within 1/255
+DEPTH_FRAMES = 8
+DEPTH_POS_TOL_M = 1e-5
+GRID_FLIP_TOL = 1e-4
+MAP_SET_TOL = 0.02
 
 
 def write_config(path, width, height, fx, dist, T_SC, calibration=""):
@@ -242,6 +256,155 @@ def test_gnss_calibration_app_matches_jax_app(gnss_runs):
     assert float(np.abs(ta[:, 1:4] - tb[:, 1:4]).max()) < GNSS_POS_TOL_M
 
 
+def read_ply(path):
+    """(vertex lines as a set of strings of the xyz, {xyz: rgb} or None)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    body = lines[lines.index("end_header") + 1:]
+    has_rgb = any("red" in ln for ln in lines[:12])
+    pts = {" ".join(ln.split()[:3]): tuple(int(v) for v in ln.split()[3:]) for ln in body}
+    return set(pts), (pts if has_rgb else None)
+
+
+def record_maps(pkg, argv, out_npz):
+    """Run `pkg`'s dataset app on `argv` and keep its submaps (anchor,
+    keyframes, frames, grids, colour sums) in `out_npz` when it exports
+    map.ply."""
+    sub = __import__(f"{pkg}.pipeline.submapping", fromlist=["SubmappingInterface"])
+    export = sub.SubmappingInterface.export_occupied_ply
+
+    def keep(self, path, *a, **kw):
+        arr = {}
+        for i, e in enumerate(self.maps):
+            arr[f"T_WK{i}"] = np.asarray(e.sm.T_WK)
+            arr[f"meta{i}"] = np.array([e.anchor_fid, e.n_frames, len(e.kf_ids)])
+            arr[f"logodds{i}"] = np.asarray(e.sm.logodds)
+            arr[f"weight{i}"] = np.asarray(e.sm.weight)
+            if e.col is not None:
+                arr[f"col{i}"] = np.asarray(e.col.col)
+        np.savez(out_npz, n=len(self.maps), **arr)
+        return export(self, path, *a, **kw)
+
+    sub.SubmappingInterface.export_occupied_ply = keep
+    try:
+        if pkg == "okvis2x_tpu":
+            saved, sys.argv = sys.argv, ["okvis2x_app.py", *argv]
+            try:
+                runpy.run_path(os.path.join(REPO, "apps", "okvis2x_app.py"), run_name="__main__")
+            finally:
+                sys.argv = saved
+        else:
+            okvis2x_app.main([*argv, "--device", "cpu"])
+    finally:
+        sub.SubmappingInterface.export_occupied_ply = export
+
+
+@pytest.fixture(scope="module")
+def depth_runs(tmp_path_factory):
+    """Both apps in `rgbd` and in `depth` mode on DEPTH_FRAMES frames of a
+    dataset with depth0/ and a config whose cam0 is an rgb camera (the depth
+    mode splats its colour): the two JAX apps in spawned processes on two
+    cores each meanwhile the port's run here.  Returns {mode: (port output,
+    JAX output, the port's depth integrations)}; each output holds the
+    submaps in maps.npz (`record_maps`)."""
+    from okvis2x_tpu_torch.pipeline.submapping import SubmappingInterface
+
+    root = tmp_path_factory.mktemp("depth")
+    ds = str(root / "ds")
+    _, T_SC, _ = jsyn.generate(ds, duration=0.3 + DEPTH_FRAMES / 10.0 - 0.05, frame_rate=10.0,
+                               width=320, height=240, with_depth=True)
+    cfg = str(root / "okvis2.yaml")
+    write_config(cfg, 320, 240, 280.0, [-0.25, 0.06, 1e-4, -1e-4], T_SC)
+    with open(cfg) as f:
+        text = f.read()
+    with open(cfg, "w") as f:
+        f.write(text.replace("camera_type: gray", "camera_type: rgb", 1))
+    modes = ("rgbd", "depth")
+    outs = {(m, k): str(root / f"{m}_{k}") for m in modes for k in ("port", "jax")}
+    for d in outs.values():
+        os.makedirs(d)
+
+    def args(m, k):
+        return ["--dataset", ds, "--config", cfg, "--mode", m, "--reader", "xdataset",
+                "--output", outs[m, k], "--max-frames", str(DEPTH_FRAMES)]
+
+    cores = sorted(os.sched_getaffinity(0))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    refs = {}
+    for i, m in enumerate(modes):
+        pick = sorted(set(cores[-8:][2 * i:2 * i + 2]) or set(cores))
+        npz = os.path.join(outs[m, "jax"], "maps.npz")
+        run = (f"import os, sys; os.sched_setaffinity(0, {pick}); "
+               f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r}); import test_torch_app as t; "
+               f"t.record_maps('okvis2x_tpu', {args(m, 'jax')!r}, {npz!r})")
+        log = open(os.path.join(outs[m, "jax"], "log.txt"), "w")
+        refs[m] = (subprocess.Popen([sys.executable, "-c", run], cwd=REPO, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT), log)
+    integrations = {}
+    integrate = SubmappingInterface.integrate_depth
+    try:
+        for m in modes:
+            n = [0]
+
+            def counted(self, *a, n=n, **kw):
+                n[0] += 1
+                return integrate(self, *a, **kw)
+
+            SubmappingInterface.integrate_depth = counted
+            record_maps("okvis2x_tpu_torch", args(m, "port"),
+                        os.path.join(outs[m, "port"], "maps.npz"))
+            integrations[m] = n[0]
+        rcs = {m: p.wait(timeout=1200) for m, (p, _) in refs.items()}
+    finally:
+        SubmappingInterface.integrate_depth = integrate
+        for p, log in refs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for m in modes:
+        with open(os.path.join(outs[m, "jax"], "log.txt")) as f:
+            assert rcs[m] == 0, f.read()[-3000:]
+    return {m: (outs[m, "port"], outs[m, "jax"], integrations[m]) for m in modes}
+
+
+@pytest.mark.parametrize("mode", ["rgbd", "depth"])
+def test_depth_modes_match_jax_app(depth_runs, mode):
+    """`--mode rgbd` (sensor depth priors, learned stereo and multi-view depth
+    fused on every keyframe) and `--mode depth` (learned stereo depth with
+    cam0's colour): both trajectories within DEPTH_POS_TOL_M of the JAX app's;
+    the same submaps with their grids and colours; the occupied voxels of
+    map.ply the JAX app's within MAP_SET_TOL, with their colours in depth
+    mode."""
+    port, ref, n_integrated = depth_runs[mode]
+    assert n_integrated >= (DEPTH_FRAMES - 2 if mode == "rgbd" else DEPTH_FRAMES)
+    for name in ("trajectory.tum", "final_trajectory.tum"):
+        a = np.loadtxt(os.path.join(port, name))
+        b = np.loadtxt(os.path.join(ref, name))
+        assert a.shape == b.shape and len(a) >= (DEPTH_FRAMES if name[0] == "t" else 1)
+        np.testing.assert_array_equal(a[:, 0], b[:, 0])
+        assert float(np.abs(a[:, 1:4] - b[:, 1:4]).max()) < DEPTH_POS_TOL_M, name
+    ma, mb = np.load(os.path.join(port, "maps.npz")), np.load(os.path.join(ref, "maps.npz"))
+    assert int(ma["n"]) == int(mb["n"]) >= 1
+    for i in range(int(ma["n"])):
+        np.testing.assert_array_equal(ma[f"meta{i}"], mb[f"meta{i}"])
+        np.testing.assert_allclose(ma[f"T_WK{i}"], mb[f"T_WK{i}"], rtol=0, atol=1e-6)
+        same = ma[f"weight{i}"] == mb[f"weight{i}"]
+        assert (~same).mean() <= GRID_FLIP_TOL and (mb[f"weight{i}"] > 0).sum() > 1000
+        np.testing.assert_allclose(ma[f"logodds{i}"][same], mb[f"logodds{i}"][same], rtol=0,
+                                   atol=1e-5)
+        assert (f"col{i}" in ma) == (f"col{i}" in mb) == (mode == "depth")
+        if mode == "depth":
+            np.testing.assert_allclose(ma[f"col{i}"][:-1][same.reshape(-1)],
+                                       mb[f"col{i}"][:-1][same.reshape(-1)], rtol=0, atol=1e-4)
+    pa, ca = read_ply(os.path.join(port, "map.ply"))
+    pb, cb = read_ply(os.path.join(ref, "map.ply"))
+    assert len(pa ^ pb) <= MAP_SET_TOL * len(pb), (len(pa), len(pb), len(pa ^ pb))
+    assert (ca is not None) == (cb is not None) == (mode == "depth" and len(pb) > 0)
+    if ca is not None and pa & pb:
+        assert max(max(abs(x - y) for x, y in zip(ca[p], cb[p])) for p in pa & pb) <= 1
+
+
 def test_slam_synthetic_test_writes_both_trajectories(tmp_path):
     """`--synthetic-test --mode slam` on a few frames: the online and the
     final-BA trajectories."""
@@ -273,12 +436,29 @@ def test_record_mode_round_trip(tmp_path):
     assert sum(1 for k, _ in b.events() if k == "imu") > 50
 
 
-@pytest.mark.parametrize("mode,item", [("depth", "A4"), ("rgbd", "A3"), ("lidar", "A5")])
-def test_unported_modes_raise(mode, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        okvis2x_app.main(["--synthetic-test", "--mode", mode, "--output", str(tmp_path),
-                          "--device", "cpu"])
-    assert not os.listdir(tmp_path)
+@pytest.mark.parametrize("case", ["lidar", "brick-grid", "mesh-export"])
+def test_unported_modes_raise(case, tmp_path):
+    """What waits for A5 says so, before the app writes anything: the lidar
+    mode, an se2.yaml whose resolution needs the brick-sparse grid (25.6 m at
+    0.025 m), and the submap mesh export."""
+    out = str(tmp_path / "out")
+    with pytest.raises(NotImplementedError, match="A5"):
+        if case == "lidar":
+            okvis2x_app.main(["--synthetic-test", "--mode", "lidar", "--output", out,
+                              "--device", "cpu"])
+        elif case == "brick-grid":
+            se2 = str(tmp_path / "se2.yaml")
+            with open(se2, "w") as f:
+                f.write("map:\n  dim: [25.6, 25.6, 25.6]\n  res: 0.025\n")
+            okvis2x_app.main(["--synthetic-test", "--mode", "depth", "--se2-config", se2,
+                              "--output", out, "--device", "cpu"])
+        else:
+            from okvis2x_tpu_torch.pipeline.submapping import (SubmappingConfig,
+                                                              SubmappingInterface)
+
+            si = SubmappingInterface(SubmappingConfig(), device="cpu")
+            si.export_mesh_ply(os.path.join(out, "mesh.ply"), si.active)
+    assert not os.path.exists(out)
 
 
 def test_gps_event_raises(tmp_path):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions,
+and the port's device code that has no kernel of its own (the depth nets,
+the occupancy grid, the depth modes of the app) on the card against the CPU.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device
 (all but the last, which checks what happens without one).
@@ -219,10 +221,108 @@ def test_cuda_app_runs_on_the_card_by_default(cuda, tmp_path, monkeypatch):
     assert np.isfinite(ate) and os.path.exists(os.path.join(out, "trajectory.tum"))
 
 
+def textured(h, w, seed):
+    """A smooth random texture in [0, 1] (float32)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((1, 1, h + 4, w + 4), generator=g)
+    return torch.nn.functional.avg_pool2d(x, 5, stride=1)[0, 0]
+
+
+@pytest.mark.parametrize("h,w", [(96, 128), (61, 93)])
+def test_cuda_depth_nets_match_cpu(cuda, h, w):
+    """The shipped stereo and MVS nets on the card against the CPU: disparity
+    within 1e-4 px, MVS depth within 1e-5 m, with TF32 allowed around the
+    call (the nets turn it off for themselves)."""
+    from okvis2x_tpu_torch.models import mvs_net, stereo_net
+
+    left = textured(h, w, 0)
+    right = torch.roll(left, -4, dims=1)
+    srcs = torch.stack([torch.roll(left, 3, dims=1), torch.roll(left, -2, dims=0)])
+    K = torch.tensor([80.0, 80.0, w / 2, h / 2])
+    T = torch.eye(4).repeat(2, 1, 1)
+    T[0, 0, 3], T[1, 1, 3] = 0.1, -0.1
+    out = {}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev in ("cpu", "cuda:0"):
+            snet, _ = stereo_net.trained(str(stereo_net.DEFAULT_WEIGHTS), 64, dev)
+            mnet, _ = mvs_net.trained(str(mvs_net.DEFAULT_WEIGHTS), dev)
+            with torch.no_grad():
+                out[dev] = (snet(left.to(dev), right.to(dev))
+                            + mnet(left.to(dev), srcs.to(dev), K.to(dev), T.to(dev)))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (d0, s0, m0, ms0), (d1, s1, m1, ms1) = out["cpu"], [x.cpu() for x in out["cuda:0"]]
+    assert (d1 - d0).abs().max() < 1e-4 and ((s1 - s0).abs() / s0).max() < 1e-4
+    assert (m1 - m0).abs().max() < 1e-5 and ((ms1 - ms0).abs() / ms0).max() < 1e-5
+
+
+def test_cuda_occupancy_grid_matches_cpu(cuda):
+    """Depth-image integration, interpolation and colour splatting into a
+    64^3 grid on the card against the CPU: counts equal, log-odds within
+    1e-6, the occupied set equal."""
+    from okvis2x_tpu_torch.cameras import pinhole
+    from okvis2x_tpu_torch.mapping import colour, submap
+
+    cam = pinhole.make_pinhole(100.0, 100.0, 64.0, 48.0, 128, 96, model="none")
+    depth = 2.5 + 0.5 * textured(96, 128, 1)
+    sigma = 0.01 * depth * depth
+    T_KC = torch.tensor([0.1, -0.05, 0.02, 0.0, 0.0, 0.0499792, 0.9987503])
+    cfg = submap.SubmapConfig(dim=64, res=0.2)
+    grids = {}
+    for dev in ("cpu", "cuda:0"):
+        sm = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, device=dev)
+        for _ in range(3):
+            sm = submap.integrate_depth_image(sm, cfg, cam.to(device=dev), T_KC.to(dev),
+                                              depth.to(dev), sigma.to(dev))
+        _, p_K, ok = submap.depth_rays(cam.to(device=dev), T_KC.to(dev), depth.to(dev), 4, 20.0)
+        st = colour.splat(colour.new_store(cfg, device=dev), cfg, p_K,
+                          torch.rand((p_K.shape[0], 3), generator=torch.Generator().manual_seed(2))
+                          .to(dev), ok)
+        q = p_K[:500]
+        grids[dev] = (sm, submap.interp_occupancy(sm, cfg, q)[0].cpu(),
+                      colour.colour_at(st, cfg, q).cpu())
+    (a, ia, ca), (b, ib, cb) = grids["cpu"], grids["cuda:0"]
+    assert torch.equal(a.weight, b.weight.cpu())
+    assert (a.logodds - b.logodds.cpu()).abs().max() < 1e-6
+    assert torch.equal(a.logodds > 1.0, b.logodds.cpu() > 1.0) and bool((a.logodds > 1.0).any())
+    assert (ia - ib).abs().max() < 1e-5 and (ca - cb).abs().max() < 1e-6
+
+
+@pytest.mark.parametrize("mode", ["rgbd", "depth"])
+def test_cuda_depth_modes_run_on_the_card(cuda, mode, tmp_path):
+    """`--mode rgbd` and `--mode depth` of the dataset app on cuda:0 by
+    default: both trajectories and map.ply, the submaps on the card."""
+    import os
+
+    from okvis2x_tpu_torch.apps import okvis2x_app
+    from okvis2x_tpu_torch.pipeline.submapping import SubmappingInterface
+
+    made = []
+    init = SubmappingInterface.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    SubmappingInterface.__init__ = spy
+    out = str(tmp_path / "out")
+    try:
+        okvis2x_app.main(["--synthetic-test", "--mode", mode, "--max-frames", "6",
+                          "--output", out])
+    finally:
+        SubmappingInterface.__init__ = init
+    assert made[0].device == torch.device("cuda:0") and made[0].maps
+    assert all(e.sm.logodds.is_cuda for e in made[0].maps)
+    for name in ("trajectory.tum", "final_trajectory.tum", "map.ply"):
+        assert os.path.exists(os.path.join(out, name))
+
+
 def test_no_device_means_cuda_or_an_error():
-    """`VioPipeline` and `SlidingWindowEstimator` built without a device run
-    on the first CUDA device; where there is none they raise and do not
-    carry on on the CPU."""
+    """`VioPipeline`, `SlidingWindowEstimator` and `SubmappingInterface`
+    built without a device run on the first CUDA device; where there is none
+    they raise and do not carry on on the CPU."""
     from okvis2x_tpu_torch.cameras import pinhole
     from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, SlidingWindowEstimator
     from okvis2x_tpu_torch.pipeline.vio import VioPipeline
@@ -230,8 +330,11 @@ def test_no_device_means_cuda_or_an_error():
     cam = pinhole.make_pinhole(280.0, 280.0, 160.0, 120.0, 320, 240,
                                dist_params=[-0.25, 0.06, 1e-4, -1e-4])
     T_SC = np.array([[-0.055, 0, 0, 0, 0, 0, 1.0], [0.055, 0, 0, 0, 0, 0, 1.0]])
+    from okvis2x_tpu_torch.pipeline.submapping import SubmappingConfig, SubmappingInterface
+
     build = (lambda: VioPipeline([cam, cam], T_SC, EstimatorConfig()),
-             lambda: SlidingWindowEstimator(EstimatorConfig(), [cam, cam], T_SC))
+             lambda: SlidingWindowEstimator(EstimatorConfig(), [cam, cam], T_SC),
+             lambda: SubmappingInterface(SubmappingConfig()))
     for make in build:
         if torch.cuda.is_available():
             assert make().device == torch.device("cuda:0")

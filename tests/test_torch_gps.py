@@ -453,6 +453,6 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--count-aten"]:
         print(json.dumps(count_aten()))
     else:
-        n = int(sys.argv[1]) if len(sys.argv) > 1 else 40
+        n = int(sys.argv[1]) if len(sys.argv) > 1 else chip_smoke.GNSS_FRAMES
         res = jax_app_rehearsal(n, os.path.join(REPO, "build", "gnss_rehearsal"))
         print(json.dumps(res, default=float))

@@ -301,12 +301,13 @@ def test_lc_match_matches_jax():
 # ------------------------------------------------------- what is not ported
 @pytest.mark.parametrize("unported", [
     "cap_icp", dict(segmentation="heuristic"),
-    dict(deferred_frontend=True, segmentation="net"), "depth_input",
+    dict(deferred_frontend=True, segmentation="net"),
+    dict(pipelined_solve=False, segmentation="net"),
 ])
 def test_unported_loop_closure_features_raise(unported):
-    """Semantic keypoint weighting (also inside the deferred fused
-    frontend), live submap-ICP rows and depth input raise instead of running
-    something else."""
+    """Semantic keypoint weighting (on the pipelined and the synchronous
+    path, and inside the deferred fused frontend) and live submap-ICP rows
+    raise instead of running something else."""
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig as TPipelineConfig
 
     cam = convert.camera(jax.tree.map(np.asarray, make_jest()[1]))
@@ -316,10 +317,6 @@ def test_unported_loop_closure_features_raise(unported):
     with pytest.raises(NotImplementedError):
         if isinstance(unported, dict):
             VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
-        elif unported == "cap_icp":
+        else:
             VioPipeline([cam], T_SC, convert.estimator_config(EstimatorConfig(cap_icp=64)),
                         TPipelineConfig(**sync), device="cpu")
-        else:
-            pipe = VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**sync), device="cpu")
-            img = np.zeros((cam.height, cam.width), np.uint8)
-            pipe.process_frame(0.0, [img], depth_images=[img.astype(np.float32)])
