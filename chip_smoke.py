@@ -22,7 +22,7 @@
    The fused kernel is also held against its plain version from a second
    host thread on a CUDA stream of its own, as the place-recognition worker
    launches it;
-4. VIO: renders 12 frames (0.6 s) of the synthetic circuit at the EuRoC
+4. VIO: renders 8 frames (0.4 s) of the synthetic circuit at the EuRoC
    operating point (752x480 stereo at 20 Hz, 200 Hz IMU, 704 keypoints) in
    memory and feeds them to `VioPipeline` on the GPU under the JAX package's
    default `PipelineConfig` (pose refinement, pipelined solve, loop closure
@@ -50,7 +50,7 @@
    component; session B is a new pipeline without a vocabulary file
    (`vocab_path=""`) in phase 6's configuration that loads it (a vocabulary
    of 256 words bootstrapped from A's descriptors: binary k-means on the
-   fused kernel) and runs the first 12 frames from a world frame 1.5 m
+   fused kernel) and runs the first 8 frames from a world frame 1.5 m
    lateral and 0.1 rad of yaw off A's (moved so right after the
    estimator's first state, before the first keyframe is recorded): B must
    relocalise, its poses from then on must lie within 0.2 m and 0.05 rad
@@ -59,7 +59,7 @@
    verification's mutual match must equal the plain version's, and the
    fused kernel must have been launched from the sites "vocab" and
    "reloc";
-7b. the dataset app: the port's `generate` writes the first 20 frames of
+7b. the dataset app: the port's `generate` writes the first 12 frames of
    that circuit (752x480 PNGs, 200 Hz IMU, ground truth) in the EuRoC
    layout under build/app_phase/, with an okvis2.yaml-schema config; the
    first and last frames read back through `EurocDataset` must equal
@@ -72,7 +72,7 @@
    vocabulary descent; it prints the frame times, the peak memory and the
    launches by site;
 7c. GNSS and online calibration through the app: `generate` writes the first
-   30 frames (1.5 s) of the flagship circuit (752x480, 20 Hz) with its 5 Hz
+   24 frames (1.2 s) of the flagship circuit (752x480, 20 Hz) with its 5 Hz
    gps0/ stream (a frame yawed 0.4 rad and moved (30, -12, 4) m from the
    world, 5 cm noise) under build/gnss_phase/, with an okvis2.yaml-schema
    config that turns on `online_calibration` (window and final BA);
@@ -84,7 +84,7 @@
    most twice the JAX app's on the same frames (floors 1 degree, 0.05 m);
    it prints the status by frame, how far T_SC moved, the frame, solve,
    alignment and final-BA times, the peak memory and the launches by site;
-7d. RGB-D through the app: `generate` writes the first 20 frames (1.0 s) of
+7d. RGB-D through the app: `generate` writes the first 16 frames (0.8 s) of
    the 0.8 m circuit (752x480, 20 Hz, seed 3) with cam0's depth0/ stream
    under build/rgbd_phase/; `okvis2x_app.main` runs `--mode rgbd --reader
    xdataset` on cuda:0 (sensor depth priors; on every keyframe the learned
@@ -102,11 +102,30 @@
    equal the CPU's (counts, occupied sets, log-odds within 1e-5); it prints
    the stage means, the nets' device times (CUDA events), one integration's
    time and the peak memory;
-7e. the depth mode: 40 frames of the sinusoid scene at the same operating
+7e. the depth mode: 32 frames of the sinusoid scene at the same operating
    point with cam0 an rgb camera in the config and an se2.yaml (the dense
    grid, submaps of up to 50 keyframes), `--mode depth --se2-config`: the
    same ATE, keyframe, map and grid checks, and map.ply must carry points
    with RGB;
+7f. LiDAR through the app: `generate` writes the first LIDAR_FRAMES frames of
+   the 8 m circuit (752x480, 20 Hz, seed 3) and, through the port's
+   `DatasetWriter`, tools/lidar_scale_run.py's hall sweeps (512 rays a 0.1 s
+   sweep, cylinder wall at 13 m, floor and ceiling, 1 cm noise) under
+   build/lidar_phase/, with an okvis2.yaml-schema config and an se2.yaml of
+   that tool's submaps but 5 keyframes a submap (`LIDAR_SE2`);
+   `okvis2x_app.main` runs `--mode lidar --reader xdataset` on cuda:0
+   (sweep deskew, voxel filter, live frame-to-map edges, integration into
+   128^3 submaps, map-to-map alignment edges into the window): the online
+   ATE must be at most twice the JAX app's on the same frames (floor
+   0.05 m), the sweeps integrated, submaps and map-to-map edges equal to the
+   JAX app's (`JAX_LIDAR`, at least one edge), at least one live
+   constraint, map.ply's point count within 5% and the grids within 1%;
+   then the drift-recovery scenario of tests/test_lidar_vio.py on the card
+   with per-point ICP rows and with the compressed edge (under 3 cm left
+   and under half the edge's, card equal to CPU within 1e-6 m), and it
+   prints the frame times, the stage means, the device times of one
+   2048-ray integration and one alignment edge, the aten calls of one
+   linearisation with ICP rows and the peak memory;
 8. asynchronous loop closure on the same frames: the flagship configuration
    of tools/slam_bench.py without its deferred frontend (place recognition
    on the worker thread, the background optimisation of the history,
@@ -159,7 +178,7 @@ MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # NVIDIA's table of arithmetic instruction throughput, compute capability 9.0
 POPC_PER_CLOCK_PER_SM = 16
 GRAPH_LAUNCHES = 100
-N_FRAMES = 12  # the VIO phase: 0.6 s of the sequence
+N_FRAMES = 8  # the VIO phase: 0.4 s of the sequence (12 until the LiDAR phase came)
 # the loop-closure phases: a lap of the 0.8 m circuit (1 rad/s) is about 125
 # frames; the flagship records keyframes more sparsely and a call later, and
 # gets the frames of the next keyframes after the lap as well
@@ -185,44 +204,48 @@ LC_PIPES = {
 }
 LC_ESTS = {"synchronous": {}, "asynchronous": FLAGSHIP_EST, "flagship": FLAGSHIP_EST}
 # the multi-session phase: session B runs this many frames from a world frame
-# 1.5 m lateral and 0.1 rad of yaw off session A's (tests/test_multisession.py)
-MS_FRAMES = 12
+# 1.5 m lateral and 0.1 rad of yaw off session A's (tests/test_multisession.py);
+# 12 until the LiDAR phase came
+MS_FRAMES = 8
 MS_OFFSET = (1.5, 0.1)
 MS_POS_TOL_M, MS_ROT_TOL_RAD = 0.2, 0.05
 # the app phase: this many frames of the 0.8 m circuit written as a dataset
 # (the app runs the JAX app's estimator, 10 LM iterations without early
-# exit: 2.3-3 s a frame on the card; 20 frames keep the phase under a
-# minute and, with the GNSS phase after it, the script under about 1100 s)
-APP_FRAMES = 20
-# the GNSS phase: the first 30 frames (1.5 s) of the flagship circuit with a
-# 5 Hz GNSS stream in a frame yawed by 0.4 rad and moved by (30, -12, 4) m, as
+# exit: 1.7-3 s a frame on the card; 12 frames since the LiDAR phase came,
+# 20 before, to keep the script near its length before that phase)
+APP_FRAMES = 12
+# the GNSS phase: the first 24 frames (1.2 s; 30 until the LiDAR phase came, 40
+# until the RGB-D phase came) of the flagship circuit with a 5 Hz GNSS stream in
+# a frame yawed by 0.4 rad and moved by (30, -12, 4) m, as
 # tools/gnss_scale_run.py writes it, and online extrinsics calibration on
-GNSS_FRAMES = 30
+# ("Initialised" at frame 19 in the JAX app)
+GNSS_FRAMES = 24
 GNSS_DATA = dict(frame_rate=20.0, imu_rate=200.0, width=752, height=480, fx=460.0,
                  density=22.0, seed=3, scene_version=2, trajectory="circuit", with_gps=True,
                  gps_rate=5.0, gps_sigma=0.05)
 TRUE_YAW_G = 0.4
 TRUE_T_G = np.array([30.0, -12.0, 4.0])
-# the JAX app on the same 30 frames on the CPU (`python tests/test_torch_gps.py`,
+# the JAX app on the same 24 frames on the CPU (`python tests/test_torch_gps.py`,
 # PERF.md section 4): the T_GW errors against the generator's alignment, as
 # tools/gnss_scale_run.py measures them (deg, m) and carried into the
 # estimator's world frame (`tgw_error_local`), and the global ATE online and
 # after the final BA (m); the port is held to twice these, with floors of 1
 # degree and 0.05 m
-JAX_GNSS = dict(yaw_deg=92.77341210680439, t_m=7.9471982317781,
-                local_yaw_deg=1.2447203546157775, local_t_m=0.1485304571171042,
-                ate_global_online_m=0.10916429945436963, ate_global_final_m=0.14026148810239417)
-# the RGB-D phase: the first 20 frames (1.0 s) of the 0.8 m circuit at the
+JAX_GNSS = dict(yaw_deg=94.08829469364959, t_m=7.983025679623287,
+                local_yaw_deg=0.0701622322293706, local_t_m=0.16333174008165138,
+                ate_global_online_m=0.09895696820758274,
+                ate_global_final_m=0.14606159199777566)
+# the RGB-D phase: the first 16 frames (0.8 s) of the 0.8 m circuit at the
 # EuRoC operating point with cam0's depth0/ stream, through the app in rgbd
 # mode (3 keyframes, 1 of them fused, in the JAX app); then the depth mode
-# with cam0 an rgb camera on 40 frames of the sinusoid scene at the same
+# with cam0 an rgb camera on 32 frames of the sinusoid scene at the same
 # operating point, where every frame is a keyframe, under DEPTH_SE2: the
 # dense 128^3 grid at 0.2 m of the default config with submaps of up to 50
 # keyframes, since a voxel passes map.ply's log-odds 1.0 only after about 20
 # integrations of its surface and the default 20-keyframe submaps close
 # before more than a few do (in the JAX app too)
-RGBD_FRAMES = 20
-DEPTH_FRAMES = 40
+RGBD_FRAMES = 16  # 20 until the LiDAR phase came
+DEPTH_FRAMES = 32  # 40 until the LiDAR phase came
 DEPTH_DATA = {
     "rgbd": dict(frame_rate=20.0, imu_rate=200.0, width=752, height=480, fx=460.0,
                  density=22.0, seed=3, scene_version=2, trajectory="circuit", with_depth=True,
@@ -241,25 +264,75 @@ map:
   res: 0.2
 """
 # the JAX app on the same frames on the CPU (`python tests/test_torch_depth.py
-# rgbd 20` and `... depth 40`, PERF.md section 4): ATEs (m), keyframes
+# rgbd 16` and `... depth 32`, PERF.md section 4): ATEs (m), keyframes
 # integrated, map.ply's points, `grid_stats`; the port is held to twice the
 # ATEs (floor 0.05 m), at least as many keyframes, the point count within
 # MAP_POINTS_TOL and the grids within GRID_TOL
 JAX_DEPTH = {
-    "rgbd": dict(ate_online_m=0.0018757473180094646, ate_final_m=0.0010592783497619398,
-                 n_integrated=1, map_points=0, n_submaps=1, total_weight=1263360.0,
-                 logodds_sum=-285.7844184727701, observed_voxels=32781, positive_voxels=7991,
+    "rgbd": dict(ate_online_m=0.002487772594713386, ate_final_m=0.0010607450528058444,
+                 n_integrated=1, map_points=0, n_submaps=1,
+                 total_weight=1263360.0, logodds_sum=-286.2161221512233,
+                 observed_voxels=32770, positive_voxels=7979,
                  voxels_above_1=0),
-    "depth": dict(ate_online_m=0.16530913049977183, ate_final_m=0.021758636766306624,
-                  n_integrated=40, map_points=329, n_submaps=1, total_weight=49994830.0,
-                  logodds_sum=-29293.998706619986, observed_voxels=140971,
-                  positive_voxels=40664, voxels_above_1=329),
+    "depth": dict(ate_online_m=0.09505728817245675, ate_final_m=0.010245855409509785,
+                  n_integrated=32, map_points=198, n_submaps=1,
+                  total_weight=39996223.0, logodds_sum=-23412.885030523226,
+                  observed_voxels=131106, positive_voxels=36281,
+                  voxels_above_1=198),
 }
 MAP_POINTS_TOL = 0.05
 GRID_TOL = 0.01  # the grids' counts and voxel sets (grid_stats) against the JAX app's
 FUSED_TOL_M = 1e-3  # the card's fused keyframe depth against the CPU's
 FUSED_MASK_TOL = 1e-3
 COMPARE_EVERY = 16  # flagship frames between two holds of the kernel against its plain version
+# the LiDAR phase: the EuRoC operating point on tools/lidar_scale_run.py's
+# circuit (the 8 m circuit of tools/slam_bench.py) with that tool's hall
+# sweeps in lidar0/ (`make_sweep`), through the app in lidar mode under
+# LIDAR_SE2: the tool's submaps (128^3 at 0.2 m, 200 alignment points, sigma
+# 0.4, 4 frames at least) but 5 keyframes a submap instead of 20, so that
+# three submaps, and with them a map-to-map edge, form within the phase
+# the app runs LIDAR_FRAMES frames of a dataset of LIDAR_DATASET_FRAMES: in the
+# JAX app on these files the third submap, and with it the map-to-map edge,
+# comes after frame 27, and no fourth submap by frame 40 (`python
+# tests/test_torch_lidar.py 40`, PERF.md section 4), so the phase stops 2
+# frames after the edge (the generator's noise, and with it when the edge
+# comes, depends on the dataset's length); 33 frames in its first runs
+LIDAR_FRAMES = 29
+LIDAR_DATASET_FRAMES = 40
+LIDAR_DATA = dict(frame_rate=20.0, imu_rate=200.0, width=752, height=480, fx=460.0,
+                  density=22.0, seed=3, scene_version=2, trajectory="circuit")
+HALL_R_WALL, HALL_Z_FLOOR, HALL_Z_CEIL = 13.0, -1.6, 4.2
+RAYS_PER_SWEEP = 512
+SWEEP_PERIOD = 0.1
+FIRST_SWEEP_T = 0.4
+LIDAR_SE2 = """general:
+  submap_kf_threshold: 5
+  submap_overlap_ratio: 0.1
+  submap_min_frames: 4
+  n_factors_per_state: 200
+  sensor_error: 0.4
+  depth_image_resolution_downsampling: 4
+  far_plane: 20.0
+map:
+  dim: [25.6, 25.6, 25.6]
+  res: 0.2
+data:
+  log_odd_min: -5.0
+  log_odd_max: 5.0
+"""
+# the JAX app on the same frames on the CPU (`python tests/test_torch_lidar.py`,
+# PERF.md section 4): `lidar_metrics`; the port is held to twice the online
+# ATE (floor 0.05 m), the same submaps, map-to-map edges and sweeps
+# integrated, map.ply's points within MAP_POINTS_TOL and the grids within
+# GRID_TOL
+JAX_LIDAR = dict(ate_online_m=0.05850813930520451, ate_final_m=0.0037044382539067997,
+                 n_sweeps=13, n_integrated=13, n_live=10, n_align=1,
+                 map_points=375, n_submaps=3, total_weight=271519.0,
+                 logodds_sum=-29308.65023827355, observed_voxels=86474,
+                 positive_voxels=4572, voxels_above_1=375)
+# the drift-recovery scenario of tests/test_lidar_vio.py on the card, held
+# to the CPU's final pose
+DRIFT_CPU_TOL_M = 1e-6
 PCG_NODES = (300, 1000)
 PCG_ITERATIONS = 15  # PipelineConfig.full_graph_iterations
 PCG_TOL = 1e-6
@@ -2039,6 +2112,400 @@ def depth_phase(dev, card, mode):
     return sites
 
 
+def make_sweep(t_end, rng):
+    """One hall sweep of tools/lidar_scale_run.py: RAYS_PER_SWEEP rays over
+    SWEEP_PERIOD up to `t_end` (interleaved elevation rings) from the true
+    pose at each ray's time on LIDAR_DATA's circuit, cast analytically
+    against the cylinder wall, the floor and the ceiling (hits within 25 m),
+    in the moving sensor frame with 1 cm range noise from `rng`; returns
+    (ray times, points)."""
+    from okvis2x_tpu_torch.core import se3np
+    from okvis2x_tpu_torch.io.synthetic import circuit_trajectory
+
+    n = RAYS_PER_SWEEP
+    t_point = t_end - SWEEP_PERIOD + np.linspace(0.0, SWEEP_PERIOD, n)
+    az = np.linspace(-np.pi, np.pi, n, endpoint=False)
+    el = 0.3 * np.sin(np.linspace(0, 16 * np.pi, n))
+    d_S = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], -1)
+    o, q, _, _, _ = circuit_trajectory(t_point)
+    C = se3np.quat_to_matrix(q)
+    d_W = np.einsum("nij,nj->ni", C, d_S)
+    s_best = np.full(n, np.inf)
+    a = (d_W[:, :2] ** 2).sum(1)
+    b = 2 * (o[:, :2] * d_W[:, :2]).sum(1)
+    c = (o[:, :2] ** 2).sum(1) - HALL_R_WALL ** 2
+    disc = b * b - 4 * a * c
+    ok = (disc > 0) & (a > 1e-9)
+    s_cyl = np.where(ok, (-b + np.sqrt(np.maximum(disc, 0.0))) / (2 * a), np.inf)
+    s_best = np.where(s_cyl > 0.1, np.minimum(s_best, s_cyl), s_best)
+    dz = d_W[:, 2]
+    for z_pl in (HALL_Z_FLOOR, HALL_Z_CEIL):
+        with np.errstate(divide="ignore"):
+            s_pl = np.where(np.abs(dz) > 1e-6, (z_pl - o[:, 2]) / dz, np.inf)
+        s_best = np.where(s_pl > 0.1, np.minimum(s_best, s_pl), s_best)
+    hit = np.isfinite(s_best) & (s_best < 25.0)
+    p_S = np.einsum("nji,nj->ni", C, s_best[:, None] * d_W)
+    p_S = p_S + rng.normal(0, 0.01, p_S.shape)
+    return t_point[hit], p_S[hit]
+
+
+def write_sweeps(ds_dir, t_last):
+    """Add lidar0/ to the dataset at `ds_dir` (written by the port's
+    `generate` on the circuit): the hall sweeps ending every SWEEP_PERIOD
+    from FIRST_SWEEP_T to `t_last` (`make_sweep`, `default_rng(5)`), through
+    the port's `DatasetWriter`."""
+    import os
+    import shutil
+
+    from okvis2x_tpu_torch.io import synthetic
+    from okvis2x_tpu_torch.io.dataset_writer import DatasetWriter
+
+    tmp = os.path.join(ds_dir, "lidar_writer")
+    w = DatasetWriter(tmp, num_cams=0, t0_ns=synthetic.T0_NS)
+    rng = np.random.default_rng(5)
+    t_end = FIRST_SWEEP_T
+    while t_end <= t_last + 1e-9:
+        w.add_lidar_points(*make_sweep(t_end, rng))
+        t_end += SWEEP_PERIOD
+    w.close()
+    shutil.move(os.path.join(tmp, "mav0", "lidar0"), os.path.join(ds_dir, "mav0", "lidar0"))
+    shutil.rmtree(tmp)
+
+
+def lidar_dataset(root, n_frames, dataset_frames=LIDAR_DATASET_FRAMES):
+    """Write the LiDAR phase's dataset of `dataset_frames` frames under
+    `root`/dataset: the port's `generate` at LIDAR_DATA and the hall sweeps
+    up to the last frame (`write_sweeps`); an okvis2.yaml-schema config and
+    LIDAR_SE2; returns (dataset dir, the app's arguments for its first
+    `n_frames` frames, without the device)."""
+    import os
+    import shutil
+
+    from okvis2x_tpu_torch.io import synthetic
+
+    shutil.rmtree(root, ignore_errors=True)
+    ds_dir = os.path.join(root, "dataset")
+    duration = 0.3 + dataset_frames / LIDAR_DATA["frame_rate"]
+    cam, T_SC, _ = synthetic.generate(ds_dir, duration=duration, **LIDAR_DATA)
+    write_sweeps(ds_dir, duration - 0.3)
+    fx, fy, cx, cy = (float(v) for v in cam.fxfycxcy)
+    rig = types.SimpleNamespace(
+        camera=dict(width=cam.width, height=cam.height, fx=fx, fy=fy, cx=cx, cy=cy,
+                    dist_params=[float(v) for v in cam.dist_params]),
+        T_SC=T_SC)
+    cfg = os.path.join(root, "okvis2.yaml")
+    app_config(cfg, rig)
+    se2 = os.path.join(root, "se2.yaml")
+    with open(se2, "w") as f:
+        f.write(LIDAR_SE2)
+    return ds_dir, ["--dataset", ds_dir, "--config", cfg, "--mode", "lidar", "--reader",
+                    "xdataset", "--se2-config", se2, "--output", os.path.join(root, "out"),
+                    "--max-frames", str(n_frames)]
+
+
+class LidarRecorder:
+    """Wraps, while an app runs in lidar mode (the JAX package's or the
+    port's classes): `process_frame` of the LiDAR pipeline (each frame's
+    wall time to the end of its device work), `process_lidar_sweep` (the
+    sweeps integrated, the live constraints made) and the pipeline's
+    alignment callback (the map-to-map edges)."""
+
+    def __init__(self, lidar_cls):
+        self.cls = lidar_cls
+        self.pipe, self.wall = None, []
+        self.n_sweeps = self.n_integrated = self.n_live = self.n_align = 0
+        self.align_frames = []  # the frames processed when each edge came
+
+    def __enter__(self):
+        cls = self.cls
+        self.saved = (cls.process_frame, cls.process_lidar_sweep, cls._on_align_edge)
+        process_frame, sweep, on_align = self.saved
+        rec = self
+
+        def frame(pipe, *args, **kwargs):
+            t = time.perf_counter()
+            info = process_frame(pipe, *args, **kwargs)
+            dev = getattr(pipe, "device", None)
+            if dev is not None and dev.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(dev)
+            rec.wall.append(time.perf_counter() - t)
+            rec.pipe = rec.pipe or pipe
+            return info
+
+        def swept(pipe, *args, **kwargs):
+            out = sweep(pipe, *args, **kwargs)
+            rec.n_sweeps += 1
+            rec.n_integrated += bool(out.get("integrated"))
+            rec.n_live += bool(out.get("live_edge"))
+            rec.pipe = rec.pipe or pipe
+            return out
+
+        def aligned(pipe, edge):
+            rec.n_align += 1
+            rec.align_frames.append(len(rec.wall))
+            return on_align(pipe, edge)
+
+        cls.process_frame, cls.process_lidar_sweep, cls._on_align_edge = frame, swept, aligned
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.process_frame, self.cls.process_lidar_sweep, self.cls._on_align_edge = self.saved
+
+
+def lidar_metrics(rec, ds_dir, out):
+    """What the LiDAR phase checks, from a recorded app run that wrote its
+    trajectories and map.ply to `out`: the ATEs, the sweeps, the live
+    constraints, the submaps and map-to-map edges, map.ply's points and
+    `grid_stats`."""
+    import os
+
+    from okvis2x_tpu_torch.io import trajectory_io, xdataset
+
+    gt = xdataset.XDataset(ds_dir).ground_truth
+    ts, Ts = trajectory_io.read_tum(os.path.join(out, "trajectory.tum"))
+    fts, fTs = trajectory_io.read_tum(os.path.join(out, "final_trajectory.tum"))
+    n_map, _ = ply_vertices(os.path.join(out, "map.ply"))
+    return dict(
+        ate_online_m=float(trajectory_io.ate_rmse(ts, Ts[:, :3], gt[:, 0], gt[:, 1:4])),
+        ate_final_m=float(trajectory_io.ate_rmse(fts, fTs[:, :3], gt[:, 0], gt[:, 1:4])),
+        n_frames=len(ts), n_final=len(fts), n_sweeps=rec.n_sweeps,
+        n_integrated=rec.n_integrated, n_live=rec.n_live, n_align=rec.n_align,
+        align_frames=list(rec.align_frames), map_points=n_map,
+        **grid_stats(rec.pipe.submapper),
+    )
+
+
+def drift_recovery(cap_icp, device="cpu", m=None):
+    """The drift-recovery scenario of tests/test_lidar_vio.py: a wall at 2 m
+    painted by three dense sweeps from three fixed frames (5 cm grid), then a
+    frame that believes it is 8 cm behind its true pose sees the wall (300
+    rays from the seeded `default_rng(23)`) and the window is solved once;
+    with `cap_icp` > 0 the sweep enters as per-point rows, else as a
+    relative-pose edge.  Returns the LiDAR pipeline (the frame's pose is
+    `pipe.est.frames[-1].T_WS`).  `m` holds the classes of the package to
+    run (default: the port's on `device`)."""
+    if m is None:
+        from okvis2x_tpu_torch.cameras import pinhole
+        from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, FrameState
+        from okvis2x_tpu_torch.io.xdataset import LidarSweep
+        from okvis2x_tpu_torch.mapping.submap import SubmapConfig
+        from okvis2x_tpu_torch.pipeline.lidar_vio import LidarVioPipeline
+        from okvis2x_tpu_torch.pipeline.submapping import SubmappingConfig
+        from okvis2x_tpu_torch.pipeline.vio import PipelineConfig, VioPipeline
+
+        m = types.SimpleNamespace(
+            pinhole=pinhole, EstimatorConfig=EstimatorConfig, FrameState=FrameState,
+            LidarSweep=LidarSweep, SubmapConfig=SubmapConfig, LidarVioPipeline=LidarVioPipeline,
+            SubmappingConfig=SubmappingConfig, PipelineConfig=PipelineConfig,
+            VioPipeline=VioPipeline, vio_kw=dict(device=device))
+    rng = np.random.default_rng(23)
+    cam = m.pinhole.make_pinhole(fx=100.0, fy=100.0, cx=64.0, cy=48.0, width=128, height=96,
+                                 model="none")
+    est_cfg = m.EstimatorConfig(cap_frames=8, num_keyframes=4, num_imu_frames=2,
+                                cap_landmarks=64, cap_obs=256, cap_imu_links=7, cap_rel_edges=8,
+                                cap_icp=cap_icp, max_iterations=6)
+    vio = m.VioPipeline([cam], np.array([[0, 0, 0, 0, 0, 0, 1.0]]), est_cfg,
+                        m.PipelineConfig(do_loop_closures=False), **m.vio_kw)
+    sub_cfg = m.SubmappingConfig(submap=m.SubmapConfig(dim=96, res=0.05, band_samples=16),
+                                 min_frames_integrated=1, align_points=128, sensor_sigma=0.1)
+    pipe = m.LidarVioPipeline(vio, sub_cfg, voxel=0.05, max_points_per_sweep=4096)
+    est = pipe.est
+    for k in range(3):
+        est.frames.append(m.FrameState(fid=k, timestamp=0.1 * k,
+                                       T_WS=np.array([0, 0, 0, 0, 0, 0, 1.0]), sb=np.zeros(9),
+                                       is_keyframe=True, pose_fixed=True, sb_fixed=True,
+                                       pose_graph_frame=True))
+    pipe.vio.last_kf_fid = 0
+    xy = np.stack(np.meshgrid(np.linspace(-2, 2, 70), np.linspace(-1.5, 1.5, 52)),
+                  -1).reshape(-1, 2)
+    wall = np.concatenate([xy, np.full((len(xy), 1), 2.0)], -1)
+    for t in (0.15, 0.22, 0.28):
+        pipe.process_lidar_sweep(m.LidarSweep(t=t, t_point=np.linspace(t - 0.05, t, len(wall)),
+                                              pts=wall, intensity=np.ones(len(wall))))
+    est.frames.append(m.FrameState(fid=3, timestamp=0.35,
+                                   T_WS=np.array([0, 0, -0.08, 0, 0, 0, 1.0]), sb=np.zeros(9),
+                                   is_keyframe=False, sb_fixed=True))
+    pts = np.concatenate([rng.uniform(-1.8, 1.8, (300, 2)), np.full((300, 1), 2.0)], -1)
+    pipe.process_lidar_sweep(m.LidarSweep(t=0.40, t_point=np.linspace(0.36, 0.40, 300),
+                                          pts=pts, intensity=np.ones(300)))
+    est.optimise()
+    return pipe
+
+
+def drift_cpu_poses():
+    """The drifted frame's pose after `drift_recovery` on the CPU, by
+    `cap_icp` (128 and 0): the CPU half of `lidar_device_checks`, run in
+    the spawned process meanwhile the card works."""
+    import torch
+
+    torch.set_num_threads(1)
+    return {cap: np.array(drift_recovery(cap, "cpu").est.frames[-1].T_WS) for cap in (128, 0)}
+
+
+def lidar_device_checks(dev, card, pipe, cpu_poses=None):
+    """The live ICP rows and the LiDAR functions on the card: the drift
+    recovery (`drift_recovery`) with per-point rows and with the compressed
+    edge on the card against the CPU's (`cpu_poses`, a future of
+    `drift_cpu_poses`; None: computed here); the device times of one
+    2048-ray `integrate_rays` into a 128^3 grid and of one
+    `make_alignment_edge` of up to 200 points of the app's second submap
+    against its first (CUDA events); the aten calls of one
+    linearisation of the drift problem with and without its ICP rows."""
+    import torch
+    import torch.profiler as tp
+    from okvis2x_tpu_torch.mapping import icp_factor, submap
+    from okvis2x_tpu_torch.solver import gauss_newton as gn
+
+    cpu_poses = drift_cpu_poses() if cpu_poses is None else cpu_poses.result()
+    poses, pipes = {}, {}
+    for cap in (128, 0):
+        pipes["card", cap] = drift_recovery(cap, dev)
+        poses["card", cap] = np.array(pipes["card", cap].est.frames[-1].T_WS)
+        poses["cpu", cap] = cpu_poses[cap]
+    err_live, err_edge = abs(poses["card", 128][2]), abs(poses["card", 0][2])
+    gaps = {cap: float(np.abs(poses["card", cap][:3] - poses["cpu", cap][:3]).max())
+            for cap in (128, 0)}
+    if not (err_live < 0.03 and err_live < 0.5 * err_edge):
+        raise RuntimeError(f"LiDAR: the per-point rows leave {err_live} m of the 8 cm drift, the "
+                           f"compressed edge {err_edge} m (bounds 0.03 m and half the edge's)")
+    if not max(gaps.values()) <= DRIFT_CPU_TOL_M:
+        raise RuntimeError(f"LiDAR: the drift recovery on the card is {gaps} m from the CPU's "
+                           f"(bound {DRIFT_CPU_TOL_M})")
+    # aten calls of one linearisation of the drift window, with its ICP rows
+    est = pipes["card", 128].est
+    p = est._build_problem()[0]
+    aten = {}
+    for name, use_icp in (("without", False), ("with", True)):
+        cfg = est._solver_config(est.cfg.max_iterations, False, use_icp)
+        gn.linearize(p, est.cams, cfg)
+        with tp.profile(activities=[tp.ProfilerActivity.CPU]) as prof:
+            gn.linearize(p, est.cams, cfg)
+            torch.cuda.synchronize()
+        aten[name] = sum(e.name.startswith("aten::") for e in prof.events())
+    # device times at the LiDAR path's shapes
+    cfg = submap.SubmapConfig()
+    rng = np.random.default_rng(5)
+    end = np.concatenate([make_sweep(FIRST_SWEEP_T + k * SWEEP_PERIOD, rng)[1]
+                          for k in range(8)])[:2048]
+    end_d = torch.as_tensor(end, dtype=torch.float32, device=dev)
+    sm0 = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, device=dev)
+    origin = torch.zeros(3, device=dev)
+    ok = torch.ones(len(end_d), dtype=torch.bool, device=dev)
+    si = pipe.submapper  # the pair of the phase's first map-to-map edge
+    a, b = si.maps[0], si.maps[1]
+    centres, occ = submap.occupied_point_list(b.sm, si.cfg.submap, max_points=4096)
+    pts = centres[occ][:si.cfg.align_points]
+    valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    times = dict(
+        integrate_ms=time_ms(lambda: submap.integrate_rays(sm0, cfg, origin, end_d, ok, 0.1), 10),
+        edge_ms=time_ms(lambda: icp_factor.make_alignment_edge(
+            a.sm, si.cfg.submap, a.sm.T_WK, b.sm.T_WK, pts, valid, si.cfg.sensor_sigma), 10),
+        integrate_mib=peak_mib(lambda: submap.integrate_rays(sm0, cfg, origin, end_d, ok, 0.1)))
+    print(f"LiDAR on the card: drift recovery (8 cm) with per-point rows {err_live * 100:.3f} cm "
+          f"left, with the compressed edge {err_edge * 100:.3f} cm; card vs CPU {gaps[128]:.2e} "
+          f"/ {gaps[0]:.2e} m; aten calls of one linearisation of the drift window "
+          f"{aten['without']} without its 128 ICP rows, {aten['with']} with them; device time "
+          f"(CUDA events, mean of 10 calls) of one integrate_rays of {len(end_d)} rays x "
+          f"{cfg.samples_per_ray + cfg.band_samples} samples into the 128^3 grid "
+          f"{times['integrate_ms']:.3f} ms (peak {times['integrate_mib']:.1f} MiB above its "
+          f"inputs), of one make_alignment_edge of {len(pts)} points {times['edge_ms']:.3f} ms "
+          f"({card})")
+    return dict(times, aten=aten, err_live=err_live, err_edge=err_edge, gaps=gaps)
+
+
+def lidar_phase(dev, card, cpu_poses=None):
+    """The port's app in lidar mode, as a user runs it, on the phase's
+    dataset (`lidar_dataset`: LIDAR_FRAMES frames of the circuit at 752x480
+    with the hall sweeps, under build/lidar_phase/) with LIDAR_SE2 on the
+    default device (cuda:0) or on `dev` when that is the CPU.  Checks the
+    ATEs, the sweeps integrated, the live constraints, the submaps and
+    map-to-map edges, map.ply and the grids (`grid_stats`) against the JAX
+    app's on the same frames (JAX_LIDAR); on the card also
+    `lidar_device_checks` (`cpu_poses`: a future of `drift_cpu_poses`).
+    Prints the frame times, the stage means, the peak memory and the
+    launches by site; returns the launches."""
+    import os
+
+    import torch
+    from okvis2x_tpu_torch.apps import okvis2x_app
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.pipeline.lidar_vio import LidarVioPipeline
+    from okvis2x_tpu_torch.utils import timing
+
+    what = "LiDAR"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "lidar_phase")
+    t0 = time.perf_counter()
+    ds_dir, argv = lidar_dataset(root, LIDAR_FRAMES)
+    t_data = time.perf_counter() - t0
+    start_mib = None
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    else:
+        start_mib = torch.cuda.memory_allocated(dev) / 2**20
+        torch.cuda.reset_peak_memory_stats(dev)
+    timing.reset()
+    hamming.reset_launch_counts()
+    t0 = time.perf_counter()
+    with LidarRecorder(LidarVioPipeline) as rec:
+        okvis2x_app.main(argv)
+    t_run = time.perf_counter() - t0
+    sites = dict(hamming.hamming_match.site_launches)
+    ERRORS.check(what)
+    pipe = rec.pipe
+    if pipe.device != dev:
+        raise RuntimeError(f"{what}: the app ran on {pipe.device}, not {dev}")
+    m = lidar_metrics(rec, ds_dir, os.path.join(root, "out"))
+    ref = JAX_LIDAR
+    if m["n_frames"] != LIDAR_FRAMES:
+        raise RuntimeError(f"{what}: trajectory.tum has {m['n_frames']} rows for {LIDAR_FRAMES}")
+    b_online = min(max(2.0 * ref["ate_online_m"], 0.05), ATE_LIMIT_M)
+    if not m["ate_online_m"] <= b_online or not m["ate_final_m"] <= ATE_LIMIT_M:
+        raise RuntimeError(f"{what}: ATE online {m['ate_online_m']} m (bound {b_online}: twice "
+                           f"the JAX app's {ref['ate_online_m']}, floor 0.05), final "
+                           f"{m['ate_final_m']} m (bound {ATE_LIMIT_M})")
+    for k in ("n_sweeps", "n_integrated", "n_submaps", "n_align"):
+        if m[k] != ref[k]:
+            raise RuntimeError(f"{what}: {k} {m[k]}, the JAX app's {ref[k]}")
+    if not (m["n_align"] >= 1 and m["n_live"] >= 1):
+        raise RuntimeError(f"{what}: {m['n_align']} map-to-map edges, {m['n_live']} live "
+                           "constraints (at least one of each)")
+    if not abs(m["map_points"] - ref["map_points"]) <= MAP_POINTS_TOL * ref["map_points"]:
+        raise RuntimeError(f"{what}: map.ply has {m['map_points']} points, the JAX app's "
+                           f"{ref['map_points']} (tolerance {MAP_POINTS_TOL:.0%})")
+    for k in ("total_weight", "logodds_sum", "observed_voxels", "positive_voxels"):
+        if not (ref[k] != 0 and abs(m[k] - ref[k]) <= GRID_TOL * abs(ref[k])):
+            raise RuntimeError(f"{what}: the grids' {k} is {m[k]}, the JAX app's {ref[k]} "
+                               f"(tolerance {GRID_TOL:.0%})")
+    if dev.type == "cuda" and sites.get("assoc", 0) <= 0:
+        raise RuntimeError(f"{what}: the fused kernel's launches by site {sites} lack the "
+                           "association")
+    ms = np.asarray(rec.wall) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None)
+    print(f"{what}: dataset of {LIDAR_FRAMES} frames with {m['n_sweeps']} sweeps written in "
+          f"{t_data:.1f} s; okvis2x_app --mode lidar on {pipe.device}: {t_run:.1f} s; ATE online "
+          f"{m['ate_online_m']:.4f} m (bound {b_online:.4f}; JAX app {ref['ate_online_m']:.4f}), "
+          f"final {m['ate_final_m']:.4f} m over {m['n_final']} states; sweeps integrated "
+          f"{m['n_integrated']} (JAX app {ref['n_integrated']}), live constraints {m['n_live']} "
+          f"({ref['n_live']}), submaps {m['n_submaps']} ({ref['n_submaps']}), map-to-map edges "
+          f"{m['n_align']} ({ref['n_align']}) after frames {m['align_frames']}; map.ply "
+          f"{m['map_points']} points ({ref['map_points']}); grids: counts {m['total_weight']:.0f} "
+          f"({ref['total_weight']:.0f}), log-odds sum {m['logodds_sum']:.1f} "
+          f"({ref['logodds_sum']:.1f}), observed {m['observed_voxels']} "
+          f"({ref['observed_voxels']}), log-odds > 0 {m['positive_voxels']} "
+          f"({ref['positive_voxels']}); ms/frame p50 {np.percentile(ms, 50):.1f} p90 "
+          f"{np.percentile(ms, 90):.1f} max {ms.max():.1f}; 8 LidarSweep mean "
+          f"{timing.mean_ms('8 LidarSweep'):.2f} ms, window solve (2.5 CollectSolve) mean "
+          f"{timing.mean_ms('2.5 CollectSolve'):.2f} ms, 3.2 SolveDevice mean "
+          f"{timing.mean_ms('3.2 SolveDevice'):.2f} ms; peak allocated "
+          f"{'not measured' if peak is None else f'{peak:.1f} MiB ({start_mib:.1f} at the start)'}"
+          f"; fused match launches by site {sites} ({card})")
+    if dev.type == "cuda":
+        lidar_device_checks(dev, card, pipe, cpu_poses)
+    return sites
+
+
 def drifted_circle(K, rng, radius=5.0):
     """K keyframes on a circle with drifting estimates, noisy odometry edges
     to the next two keyframes and loop edges from the last quarter to the
@@ -2136,6 +2603,7 @@ def main() -> int:
         cpu_positions = pool.submit(vio_cpu_positions)
         cpu_flagship = pool.submit(flagship_cpu_positions)
         cpu_solves = pool.submit(pcg_cpu_solves)
+        cpu_drift = pool.submit(drift_cpu_poses)
         t0 = time.perf_counter()
         match_sites, phase_sites = {}, {}
 
@@ -2170,13 +2638,16 @@ def main() -> int:
                     t0 = time.perf_counter()
                     add_sites(depth_phase(dev, card, mode), mode)
                     print(f"{mode} phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
+                add_sites(lidar_phase(dev, card, cpu_drift), "lidar")
+                print(f"LiDAR phase: {time.perf_counter() - t0:.1f} s")
             del vio
         t0 = time.perf_counter()
         pcg_phase(dev, card, cpu_solves)
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
     # times at 704x1024, the map matching's shape; launches over phases 4-9,
-    # the app, GNSS, RGB-D and depth-mode phases
+    # the app, GNSS, RGB-D, depth-mode and LiDAR phases
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

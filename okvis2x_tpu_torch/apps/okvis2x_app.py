@@ -1,9 +1,9 @@
-"""Synchronous dataset app of the port: VIO, SLAM, RGB-D and depth-network
-mapping on EuRoC-layout (and extended) datasets.
+"""Synchronous dataset app of the port: VIO, SLAM, RGB-D, depth-network and
+LiDAR mapping on EuRoC-layout (and extended) datasets.
 
-Counterpart of ``apps/okvis2x_app.py`` in its ``vio``, ``slam``, ``rgbd``
-and ``depth`` modes (the reference's okvis_app_synchronous.cpp,
-okvis2x_app_synchronous.cpp and okvis2x_app_network_synchronous.cpp): reads
+Counterpart of ``apps/okvis2x_app.py`` (the reference's
+okvis_app_synchronous.cpp, okvis2x_app_synchronous.cpp and
+okvis2x_app_network_synchronous.cpp): reads
 an okvis2.yaml-schema config and a dataset directory, runs `VioPipeline`
 synchronously, writes TUM trajectories (online, and after the final BA
 except in ``vio`` mode) and the debug CSVs when asked, and reports the ATE
@@ -17,10 +17,14 @@ variance and integrated into occupancy submaps.  ``depth``: the stereo
 depth alone is integrated, with cam0's image as colour when the config's
 ``camera_type`` of cam0 is ``rgb``.  Both write the occupied voxels to
 ``map.ply``; ``--se2-config`` sets the grid (dense up to 256^3).
+``lidar``: the dataset's ``lidar0/`` sweeps are deskewed, filtered, held
+against the active submap as a live constraint and integrated into
+keyframe-anchored submaps whose map-to-map alignment edges join the window
+(`LidarVioPipeline`); the submaps go to ``map.ply`` as well.
 
 Usage:
   python -m okvis2x_tpu_torch.apps.okvis2x_app --dataset /path/to/MH_01 \\
-      --config okvis2.yaml [--mode vio|slam|rgbd|depth] [--se2-config se2.yaml] \\
+      --config okvis2.yaml [--mode vio|slam|rgbd|depth|lidar] [--se2-config se2.yaml] \\
       [--reader auto|euroc|xdataset|leica|rpg] [--output out/] [--max-frames N] \\
       [--imu-csv F] [--tracks-csv F] [--device D]
   python -m okvis2x_tpu_torch.apps.okvis2x_app --synthetic-test --mode slam --output out/
@@ -45,9 +49,8 @@ import torch
 
 from okvis2x_tpu_torch import default_device
 
-# the modes of the JAX app that wait for unported parts (ROADMAP.md, A)
-UNPORTED_MODES = {"lidar": "LiDAR submapping (A5)"}
-MODES = ["vio", "slam", "depth", "rgbd", *UNPORTED_MODES]
+MODES = ["vio", "slam", "depth", "rgbd", "lidar"]
+MAPPING_MODES = ("depth", "rgbd", "lidar")
 KF_HISTORY = 4  # keyframes kept for the multi-view depth, the last two its sources
 
 
@@ -217,13 +220,10 @@ def main(argv=None):
     args = parse_args(argv)
     if args.record:
         return record_mode(args)
-    if args.mode in UNPORTED_MODES:
-        raise NotImplementedError(f"--mode {args.mode} needs {UNPORTED_MODES[args.mode]}, "
-                                  "not ported yet (ROADMAP.md)")
     device = default_device() if args.device is None else torch.device(args.device)
     # the grid before anything is written: a resolution that needs the
     # brick-sparse grid is refused
-    sub_cfg = submapping_config(args) if args.mode in ("depth", "rgbd") else None
+    sub_cfg = submapping_config(args) if args.mode in MAPPING_MODES else None
 
     from okvis2x_tpu_torch.graph.estimator import EstimatorConfig
     from okvis2x_tpu_torch.io import synthetic, trajectory_io
@@ -236,9 +236,10 @@ def main(argv=None):
     if args.synthetic_test:
         ds_dir = os.path.join(args.output, "synth")
         cam, T_SC, gt = synthetic.generate(ds_dir, duration=4.0,
-                                           with_depth=(args.mode == "rgbd"))
+                                           with_depth=(args.mode == "rgbd"),
+                                           with_lidar=(args.mode == "lidar"))
         cameras = [cam, cam]
-        if args.reader == "auto" and args.mode == "rgbd":
+        if args.reader == "auto" and args.mode in ("rgbd", "lidar"):
             args.reader = "xdataset"
     else:
         if not args.dataset or not args.config:
@@ -282,9 +283,16 @@ def main(argv=None):
     if args.tracks_csv:
         vio.set_tracks_csv_file(0, args.tracks_csv)
 
-    mapper = None
+    mapper = submapper = None
+    pipe = vio
     if args.mode in ("depth", "rgbd"):
         mapper = DepthMapper(args.mode, sub_cfg, cameras, T_SC, vio, device, cam0_is_colour)
+        submapper = mapper.submapper
+    elif args.mode == "lidar":
+        from okvis2x_tpu_torch.pipeline.lidar_vio import LidarVioPipeline
+
+        pipe = LidarVioPipeline(vio, sub_cfg)
+        submapper = pipe.submapper
     depth_by_t = dict(getattr(ds, "depth_frames", [])) if args.mode == "rgbd" else {}
 
     n = 0
@@ -296,8 +304,13 @@ def main(argv=None):
         if kind == "gps":
             vio.add_gps_measurement(*data)
             continue
+        if kind == "lidar":
+            if args.mode == "lidar":
+                with timing.Timer("8 LidarSweep"):
+                    pipe.process_lidar_sweep(data)
+            continue
         if kind != "frames" or not data.paths[0]:
-            continue  # the depth stream is read at its frame; LiDAR feeds only lidar mode
+            continue  # the depth stream is read at its frame
         images = [ds.load_image(p) for p in data.paths if p]
         with timing.Timer("1 ProcessFrame"):
             if args.mode == "rgbd":
@@ -305,7 +318,7 @@ def main(argv=None):
                 dimgs = [ds.load_depth(dpath) if dpath else None] + [None] * (len(images) - 1)
                 info = vio.process_frame(data.t, images, depth_images=dimgs)
             else:
-                info = vio.process_frame(data.t, images)
+                info = pipe.process_frame(data.t, images)
         n += 1
         if mapper is not None and info["is_keyframe"] and len(images) >= 2:
             mapper.keyframe(info, images)
@@ -325,8 +338,8 @@ def main(argv=None):
         print(f"final BA cost: {cost:.1f}")
         fts, fTs = vio.est.full_trajectory()
         trajectory_io.write_tum(os.path.join(args.output, "final_trajectory.tum"), fts, fTs)
-    if mapper is not None:
-        mapper.submapper.export_occupied_ply(os.path.join(args.output, "map.ply"))
+    if submapper is not None:
+        submapper.export_occupied_ply(os.path.join(args.output, "map.ply"))
 
     print(timing.report())
     if gt is not None:

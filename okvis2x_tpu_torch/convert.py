@@ -19,6 +19,7 @@ from okvis2x_tpu_torch.frontend.bow import HierVocabulary
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, FrameState, SlidingWindowEstimator
 from okvis2x_tpu_torch.imu.preintegration import ImuParams, Preintegrated
 from okvis2x_tpu_torch.io import config
+from okvis2x_tpu_torch.mapping import submap
 from okvis2x_tpu_torch.models import stereo_net
 from okvis2x_tpu_torch.pipeline.vio import PipelineConfig
 from okvis2x_tpu_torch.solver.gauss_newton import StackedCameras
@@ -90,17 +91,28 @@ def preintegrated(pre, dtype=torch.float64, device=None) -> Preintegrated:
                            for k in Preintegrated._fields])
 
 
+def submap_config(cfg) -> submap.SubmapConfig:
+    """JAX dense `SubmapConfig` -> the port's (same fields)."""
+    return submap.SubmapConfig(**cfg._asdict())
+
+
+def submap_grid(sm, device=None) -> submap.Submap:
+    """JAX dense `Submap` -> the port's, each array keeping its dtype."""
+    return submap.Submap(*[torch.as_tensor(np.array(x), device=device) for x in sm])
+
+
 def ba_problem(p, dtype=torch.float64, device=None) -> BAProblem:
-    """JAX `BAProblem` (numpy leaves) -> port `BAProblem`.  Submap-ICP rows
-    are not ported and must be absent."""
-    icp_a = getattr(p, "icp_a", None)
-    if icp_a is not None and np.asarray(icp_a).shape[0]:
-        raise NotImplementedError("submap ICP rows are not ported yet")
+    """JAX `BAProblem` (numpy leaves; the submap of the ICP rows may keep
+    its arrays) -> port `BAProblem`."""
     out = {}
     for k in BAProblem._fields:
         v = getattr(p, k)
         if k in ("imu_pre", "gps_pre"):
             out[k] = preintegrated(v, dtype, device)
+        elif k == "icp_map":
+            out[k] = None if v is None else submap_grid(v, device)
+        elif v is None:
+            out[k] = None
         else:
             out[k] = tensor(v, dtype, device)
     return BAProblem(**out)
@@ -169,7 +181,8 @@ def estimator_state(src, dst: SlidingWindowEstimator) -> SlidingWindowEstimator:
     IMU buffers, the chained IMU links, the priors, the held loop-closure
     frames, the correction epoch, the extrinsics and their calibration
     prior, the GNSS state (status, fixes, T_GW, antenna offset), and the
-    depth priors of the live and archived observations; the frames and
+    depth priors of the live and archived observations, and the live
+    submap-ICP points with their submap and grid config; the frames and
     edges of loaded map components (negative frame ids) come along with
     the archive."""
     dst.T_SC = np.array(src.T_SC, np.float64)
@@ -223,6 +236,12 @@ def estimator_state(src, dst: SlidingWindowEstimator) -> SlidingWindowEstimator:
         setattr(dst, k, None if v is None else np.array(v, np.float64))
     dst.lc_protected = {int(f) for f in src.lc_protected}
     dst.correction_epoch = int(src.correction_epoch)
+    dst.icp_live = None
+    if src.icp_live is not None:
+        a_fid, b_fid, pts, sig = src.icp_live
+        dst.icp_live = (int(a_fid), int(b_fid), np.array(pts), float(sig))
+    dst.icp_map = None if src.icp_map is None else submap_grid(src.icp_map, dst.device)
+    dst.icp_grid_cfg = None if src.icp_grid_cfg is None else submap_config(src.icp_grid_cfg)
     return dst
 
 

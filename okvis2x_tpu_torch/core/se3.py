@@ -117,10 +117,10 @@ def delta_q(dalpha: torch.Tensor) -> torch.Tensor:
     theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
     small = theta2 < 1e-12
     sinc = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    cos = torch.where(
-        small[..., 0], 1.0 - theta2[..., 0] / 2.0, torch.cos(theta[..., 0])
-    )
-    return torch.cat([sinc * half, cos[..., None]], dim=-1)
+    # kept (..., 1): forward AD promotes the tangent of a 0-dim float32
+    # `where` to float64
+    cos = torch.where(small, 1.0 - theta2 / 2.0, torch.cos(theta))
+    return torch.cat([sinc * half, cos], dim=-1)
 
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:
@@ -199,3 +199,9 @@ def local_delta(T_ref: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     dt = se3_t(T) - se3_t(T_ref)
     dq = quat_multiply(se3_q(T), quat_conjugate(se3_q(T_ref)))
     return torch.cat([dt, quat_log(dq)], dim=-1)
+
+
+def se3_interpolate(Ta: torch.Tensor, Tb: torch.Tensor, alpha) -> torch.Tensor:
+    """Geodesic interpolation between two poses (t lerp, q slerp through the
+    log)."""
+    return retract(Ta, alpha * local_delta(Ta, Tb))

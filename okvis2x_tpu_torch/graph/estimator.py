@@ -45,8 +45,11 @@ the archive and the re-expansion of archived keyframes; the window solves
 carry its rows whenever one is live.  As in the JAX package, the final BA
 and the background full graph carry none.
 
-Live submap-ICP rows are not part of the port yet; the option that would
-enable them raises ``NotImplementedError``.
+LiDAR: with `cap_icp` > 0 the live frame-to-map points of the newest sweep
+(`set_live_icp_points`) enter the window solves as per-point rows against the
+active submap (`set_icp_map`), with both the anchor keyframe's and the
+owner frame's poses free; the previous sweep's rows are dropped.  As in the
+JAX package, the final BA and the background full graph carry none.
 """
 
 from __future__ import annotations
@@ -146,8 +149,6 @@ class SlidingWindowEstimator:
     def __init__(self, config: EstimatorConfig, cameras, T_SC: np.ndarray, device=None):
         """`device` None is the first CUDA device; without one this raises
         (pass device="cpu" to run on the CPU)."""
-        if config.cap_icp:
-            raise NotImplementedError("live submap ICP factors are not ported yet")
         self.cfg = config
         self.device = default_device() if device is None else torch.device(device)
         self.cams = gn.stack_cameras(cameras).to(self.device, config.dtype)
@@ -234,6 +235,13 @@ class SlidingWindowEstimator:
         self.gps_timeout = 2.0  # [s]
         # window solves built with at least one valid GNSS row
         self.n_gps_solves = 0
+
+        # live per-point submap ICP rows: one refreshed set per sweep
+        # (anchor fid, owner fid, points in the owner's body frame (n, 3),
+        # sigma) against `icp_map`, a submap of grid config `icp_grid_cfg`
+        self.icp_live: Optional[tuple] = None
+        self.icp_map = None
+        self.icp_grid_cfg = None
 
         # priors on the first state
         self.prior_fid: Optional[int] = None
@@ -814,7 +822,7 @@ class SlidingWindowEstimator:
         dev = self.device
         F = lambda x: torch.as_tensor(x, dtype=cfg.dtype, device=dev)  # noqa: E731
         I = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-        p = prb.empty_problem(K=K, L=L, C=C, N=Ncap, M=Mcap, R=Rcap, G=Gcap,
+        p = prb.empty_problem(K=K, L=L, C=C, N=Ncap, M=Mcap, R=Rcap, G=Gcap, Q=cfg.cap_icp,
                               dtype=cfg.dtype, device=dev)
         if Gcap:
             p = p._replace(
@@ -842,6 +850,20 @@ class SlidingWindowEstimator:
                 ext_prior_sqrt_info=F(np.tile(self._ext_prior_si(False), (C, 1, 1))),
                 ext_prior_valid=I(np.ones(C, bool)),
             )
+        if cfg.cap_icp and self.icp_map is not None and self.icp_live:
+            a_fid, b_fid, pts_S, sig = self.icp_live
+            if a_fid in fid2slot and b_fid in fid2slot:
+                Qc = cfg.cap_icp
+                n = min(len(pts_S), Qc)
+                icp_p = np.zeros((Qc, 3))
+                icp_p[:n] = np.asarray(pts_S)[:n]
+                icp_valid = np.zeros(Qc, bool)
+                icp_valid[:n] = True
+                p = p._replace(
+                    icp_a=I(np.full(Qc, fid2slot[a_fid], np.int64)),
+                    icp_b=I(np.full(Qc, fid2slot[b_fid], np.int64)),
+                    icp_p_B=F(icp_p), icp_si=F(np.full(Qc, 1.0 / max(sig, 1e-3))),
+                    icp_valid=I(icp_valid), icp_map=self.icp_map)
         p = p._replace(
             T_WS=F(T_full), sb=F(sb_full), frame_valid=I(frame_valid),
             pose_fixed=I(pose_fixed), sb_fixed=I(sb_fixed), T_SC=F(self.T_SC),
@@ -861,11 +883,25 @@ class SlidingWindowEstimator:
         )
         return p, fid2slot, self.obs_uid[obs_src], bool(has_d.any())
 
-    def _solver_config(self, iters: int, use_depth: bool = False) -> gn.SolverConfig:
+    def set_icp_map(self, sm, grid_cfg):
+        """Register the active submap (and its grid config) as the target of
+        the live ICP rows."""
+        self.icp_map = sm
+        self.icp_grid_cfg = grid_cfg
+
+    def set_live_icp_points(self, anchor_fid: int, owner_fid: int, pts_S: np.ndarray,
+                            sigma: float):
+        """Replace the live frame-to-map points (the previous sweep's rows are
+        dropped, as the reference refreshes its live factors each frame)."""
+        self.icp_live = (anchor_fid, owner_fid, np.asarray(pts_S), sigma)
+
+    def _solver_config(self, iters: int, use_depth: bool = False,
+                       use_icp: bool = False) -> gn.SolverConfig:
         return gn.SolverConfig(
             max_iterations=iters, imu_params=self.cfg.imu,
             early_exit_rel=self.cfg.early_exit_rel,
             use_ext_priors=self.cfg.do_extrinsics, use_depth=use_depth,
+            icp_cfg=self.icp_grid_cfg if use_icp else None,
         )
 
     def _clamp_held(self, fr: FrameState, T_new: np.ndarray) -> np.ndarray:
@@ -906,7 +942,8 @@ class SlidingWindowEstimator:
             self._check_gps_dropout(self.frames[-1].timestamp)
         with timing.Timer("3.1 BuildProblem"):
             p, fid2slot, _, use_depth = self._build_problem()
-        cfg = self._solver_config(iters, use_depth)._replace(estimate_landmarks=not pose_only)
+        cfg = self._solver_config(iters, use_depth, p.icp_map is not None)._replace(
+            estimate_landmarks=not pose_only)
         with timing.Timer("3.2 SolveDevice"):
             p_opt, cost = gn.optimize(p, self.cams, cfg)
             cost = float(cost)
@@ -931,7 +968,8 @@ class SlidingWindowEstimator:
             self._check_gps_dropout(self.frames[-1].timestamp)
         with timing.Timer("3.1 BuildProblem"):
             p, fid2slot, obs_uids, use_depth = self._build_problem()
-        return dict(p=p, fid2slot=fid2slot, obs_uids=obs_uids, use_depth=use_depth, fid=fid,
+        return dict(p=p, fid2slot=fid2slot, obs_uids=obs_uids, use_depth=use_depth,
+                    use_icp=p.icp_map is not None, fid=fid,
                     gate_px=float(gate_px),
                     iters=iters, iters2=iterations2,
                     lm_lids=np.array(self.lm_ids, np.int64))
@@ -944,7 +982,8 @@ class SlidingWindowEstimator:
         uid.  Returns (cost, n_outliers)."""
         p, fid2slot = h["p"], h["fid2slot"]
         with timing.Timer("3.2 SolveDevice"):
-            p1, _ = gn.optimize(p, self.cams, self._solver_config(h["iters"], h["use_depth"]))
+            p1, _ = gn.optimize(p, self.cams, self._solver_config(h["iters"], h["use_depth"],
+                                                                  h["use_icp"]))
             f, c, l = p1.obs_frame, p1.obs_cam, p1.obs_lm
             r, proj_ok = reprojection_residual(
                 self.cams.at(c), p1.T_WS[f], p1.T_SC[c], p1.hp_W[l], p1.obs_uv,
@@ -955,7 +994,8 @@ class SlidingWindowEstimator:
                    & (~proj_ok | (err_px > h["gate_px"])))
             p2 = p1._replace(obs_valid=p1.obs_valid & ~out)
             p3, cost = gn.optimize(p2, self.cams,
-                                   self._solver_config(h["iters2"], h["use_depth"]))
+                                   self._solver_config(h["iters2"], h["use_depth"],
+                                                       h["use_icp"]))
         with timing.Timer("3.3 Readback"):
             T = p3.T_WS.cpu().numpy().astype(np.float64)
             sb = p3.sb.cpu().numpy().astype(np.float64)

@@ -1,21 +1,24 @@
-"""Submapping: the life cycle of keyframe-anchored occupancy submaps and the
-integration of depth images into them (torch counterpart of the depth half
-of ``okvis2x_tpu/pipeline/submapping.py``, the reference's
+"""Submapping: the life cycle of keyframe-anchored occupancy submaps, the
+integration of depth images and LiDAR sweeps into them, and map-to-map
+alignment edges (torch counterpart of ``okvis2x_tpu/pipeline/submapping.py``
+without its brick-sparse grid and mesh and VTK exports; the reference's
 SubmappingInterface).
 
-A keyframe's depth image goes into the active submap, or starts a new one
-when there is none, or when the active one has integrated enough frames and
-either more than `new_submap_kf_count` keyframes or less than
-`new_submap_overlap` of the image's points land in voxels it has already
-observed (`decide_new_submap`).  Submaps are re-anchored when their anchor
-keyframe moves (`on_state_update`) and export their occupied voxels as a
-PLY point cloud, coloured where colour was splatted.  The grids live on the
-interface's device; pose bookkeeping runs on the host with float32 anchors,
-as in the JAX package.
+A keyframe's depth image or a sweep goes into the active submap, or starts a
+new one when there is none, or when the active one has integrated enough
+frames and either more than `new_submap_kf_count` keyframes or less than
+`new_submap_overlap` of the measurement's points land in voxels it has
+already observed (`decide_new_submap`).  A submap that closes hands an
+alignment edge between the previous submap's anchor and its own to the
+`align_callback`: its occupied voxels registered against the previous
+submap's field, summarised as a relative-pose edge.  Submaps are re-anchored
+when their anchor keyframe moves (`on_state_update`) and export their
+occupied voxels as a PLY point cloud, coloured where colour was splatted.
+The grids live on the interface's device; pose bookkeeping runs on the host
+with float32 anchors, as in the JAX package.
 
-Not ported yet (ROADMAP.md, A5): LiDAR integration, map-to-map alignment
-edges (and with them the alignment callback), mesh and VTK export, the
-brick-sparse grid of fine resolutions.
+Not ported yet (ROADMAP.md, A5): mesh and VTK export, the brick-sparse grid
+of fine resolutions.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from okvis2x_tpu_torch import default_device
 from okvis2x_tpu_torch.cameras import pinhole
 from okvis2x_tpu_torch.core import se3
 from okvis2x_tpu_torch.mapping import colour as col_mod
+from okvis2x_tpu_torch.mapping import icp_factor
 from okvis2x_tpu_torch.mapping import submap as sm_mod
 
 _A5 = "not ported yet (ROADMAP.md, A5)"
@@ -42,6 +46,8 @@ class SubmappingConfig:
     new_submap_overlap: float = 0.1
     new_submap_kf_count: int = 20
     min_frames_integrated: int = 4
+    align_points: int = 200  # alignment points per submap pair
+    sensor_sigma: float = 0.4
     depth_stride: int = 4
     max_depth: float = 20.0
 
@@ -65,6 +71,8 @@ class SubmappingConfig:
             new_submap_overlap=se2.submap_overlap_ratio,
             new_submap_kf_count=se2.submap_kf_threshold,
             min_frames_integrated=se2.submap_min_frames,
+            align_points=se2.num_submap_factors,
+            sensor_sigma=max(se2.sensor_error, 0.01),
             depth_stride=max(1, se2.depth_image_res_downsampling),
             max_depth=se2.far_plane if se2.far_plane > 0 else 20.0,
         )
@@ -87,13 +95,13 @@ def _f32(T) -> torch.Tensor:
 
 class SubmappingInterface:
     """Host orchestration of the occupancy submaps on `device` (None: the
-    first CUDA device; raises without one)."""
+    first CUDA device; raises without one); `align_callback` receives the
+    map-to-map alignment edges."""
 
     def __init__(self, cfg: SubmappingConfig, align_callback: Optional[Callable] = None,
                  device=None):
         sm_mod.check_dense(cfg.submap)
-        if align_callback is not None:
-            raise NotImplementedError(f"map-to-map alignment edges are {_A5}")
+        self.align_callback = align_callback
         self.cfg = cfg
         self.device = default_device() if device is None else torch.device(device)
         self.maps: List[SubmapEntry] = []
@@ -111,9 +119,14 @@ class SubmappingInterface:
         n = int(good.sum())
         if n == 0:
             return 0.0
-        T_KW = se3.se3_inverse(entry.sm.T_WK)
-        seen = sm_mod.observed_mask(entry.sm, self.cfg.submap, se3.se3_apply(T_KW, pts_W))
+        seen = sm_mod.observed_mask(entry.sm, self.cfg.submap,
+                                    self._to_submap_frame(entry, pts_W))
         return float(torch.sum(seen & good).to(torch.float32) / n)
+
+    def _to_submap_frame(self, entry: SubmapEntry, pts_W: torch.Tensor) -> torch.Tensor:
+        """World points (float32) into the submap's frame through its float32
+        anchor."""
+        return se3.se3_apply(se3.se3_inverse(entry.sm.T_WK), pts_W)
 
     def decide_new_submap(self, kf_fid: int, pts_W: torch.Tensor, good: torch.Tensor) -> bool:
         """New when there is none; else, once the active one has integrated
@@ -140,9 +153,23 @@ class SubmappingInterface:
         return e
 
     def finish_submap(self):
+        """Close the active submap; with a callback, hand it the alignment
+        edge between the previous submap and this one (when informative)."""
         a = self.active
-        if a is not None:
-            a.finished = True
+        if a is None or a.finished:
+            return
+        a.finished = True
+        if self.align_callback is not None and len(self.maps) >= 2:
+            edge = self.make_alignment_edge(self.maps[-2], a)
+            if edge is not None:
+                self.align_callback(edge)
+
+    def _anchor_to(self, entry: SubmapEntry, T_WX: np.ndarray) -> torch.Tensor:
+        """T_KX (float32, on the device) from the float32 anchor and a float64
+        pose, composed as the JAX package composes it."""
+        T_KX = se3.se3_multiply(se3.se3_inverse(entry.sm.T_WK.cpu()).double(),
+                                torch.as_tensor(np.asarray(T_WX, np.float64)))
+        return T_KX.to(device=self.device, dtype=torch.float32)
 
     # ------------------------------------------------------------ integrate
     def _decision_points(self, cam: pinhole.Camera, T_WC: np.ndarray, depth: torch.Tensor):
@@ -177,10 +204,7 @@ class SubmappingInterface:
         if self.decide_new_submap(kf_fid, pts_W, good):
             self.start_submap(kf_fid, T_WK)
         a = self.active
-        # T_KC from the float32 anchor, as the JAX package composes it
-        T_KC = se3.se3_multiply(se3.se3_inverse(a.sm.T_WK.cpu()).double(),
-                                torch.as_tensor(np.asarray(T_WC, np.float64)))
-        T_KC = T_KC.to(device=dev, dtype=torch.float32)
+        T_KC = self._anchor_to(a, T_WC)
         cfg = self.cfg
         a.sm = sm_mod.integrate_depth_image(a.sm, cfg.submap, cam, T_KC, depth, sigma,
                                             stride=cfg.depth_stride, max_depth=cfg.max_depth)
@@ -196,11 +220,55 @@ class SubmappingInterface:
             s = cfg.depth_stride
             a.col = col_mod.splat(a.col, cfg.submap, p_K, col[::s, ::s].reshape(-1, 3), ok)
 
-    def integrate_lidar(self, *args, **kwargs):
-        raise NotImplementedError(f"LiDAR integration is {_A5}")
+    def integrate_lidar(self, kf_fid: int, T_WK: np.ndarray, T_WS: np.ndarray, pts_S,
+                        sigma: float = 0.1):
+        """Integrate a (deskewed, downsampled) sweep of points pts_S (N, 3) in
+        the sensor frame at pose T_WS into the active submap, starting one
+        when `decide_new_submap` says so, with `sigma` as the rays' noise."""
+        dev = self.device
+        pts_S = torch.as_tensor(np.asarray(pts_S), dtype=torch.float32, device=dev)
+        good = torch.ones(pts_S.shape[0], dtype=torch.bool, device=dev)
+        pts_W = se3.se3_apply(_f32(T_WS).to(dev), pts_S)
+        if self.decide_new_submap(kf_fid, pts_W, good):
+            self.start_submap(kf_fid, T_WK)
+        a = self.active
+        T_KS = self._anchor_to(a, T_WS)
+        a.sm = sm_mod.integrate_rays(a.sm, self.cfg.submap, T_KS[:3],
+                                     se3.se3_apply(T_KS, pts_S), good, sigma)
+        a.n_frames += 1
+        a.kf_ids.add(kf_fid)
 
-    def make_alignment_edge(self, *args, **kwargs):
-        raise NotImplementedError(f"map-to-map alignment edges are {_A5}")
+    def make_alignment_edge(self, a: SubmapEntry, b: SubmapEntry) -> Optional[dict]:
+        """Map-to-map alignment: up to `align_points` of submap b's occupied
+        voxels (a seeded draw when there are more) registered against
+        submap a's field, summarised as a relative-pose edge between the two
+        anchors (`icp_factor.make_alignment_edge`); None with fewer than 20
+        occupied voxels or a strength below 1."""
+        cfgs, npts = self.cfg.submap, self.cfg.align_points
+        centres, occ = sm_mod.occupied_point_list(b.sm, cfgs, max_points=max(4096, npts))
+        occ = occ.cpu().numpy()
+        if occ.sum() < 20:
+            return None
+        pts_Kb = centres.cpu().numpy()[occ]
+        if len(pts_Kb) > npts:
+            pts_Kb = pts_Kb[np.random.default_rng(0).choice(len(pts_Kb), npts, replace=False)]
+        return self._edge(a, b.anchor_fid, b.sm.T_WK, pts_Kb)
+
+    def _edge(self, a: SubmapEntry, j: int, T_WB: torch.Tensor, pts_B: np.ndarray
+              ) -> Optional[dict]:
+        """The alignment edge from a's anchor to frame j (pose T_WB, float32)
+        of the first `align_points` points pts_B against a's field (the JAX
+        package pads them to that count: padded points add nothing)."""
+        dev = self.device
+        pts = torch.as_tensor(np.asarray(pts_B[:self.cfg.align_points], np.float32), device=dev)
+        T_AB, sqrt_info, strength = icp_factor.make_alignment_edge(
+            a.sm, self.cfg.submap, a.sm.T_WK, T_WB.to(dev), pts,
+            torch.ones(len(pts), dtype=torch.bool, device=dev), self.cfg.sensor_sigma)
+        strength = float(strength)
+        if not np.isfinite(strength) or strength < 1.0:
+            return None
+        return dict(i=a.anchor_fid, j=j, T_ij=T_AB.cpu().numpy().astype(np.float64),
+                    sqrt_info=sqrt_info.cpu().numpy().astype(np.float64))
 
     # ------------------------------------------------------------- updates
     def on_state_update(self, states: Dict[int, np.ndarray]):

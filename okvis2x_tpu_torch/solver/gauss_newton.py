@@ -14,10 +14,10 @@ Torch counterpart of ``okvis2x_tpu/solver/gauss_newton.py``:
   * robustification is IRLS with the sqrt(rho') corrector;
   * per-keypoint depth priors (``use_depth``) share the observation rows
     and fold into the same Schur-eliminated landmark blocks;
+  * per-point submap-ICP rows (``icp_cfg``) add one block on the anchor
+    frame's pose and one on the point owner's pose per point;
   * the LM loop uses deferred accept/reject ("one linearisation per
     iteration") and an optional early exit on converged accepted steps.
-
-Submap-ICP rows are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from okvis2x_tpu_torch.cameras.pinhole import Camera
 from okvis2x_tpu_torch.core import se3
 from okvis2x_tpu_torch.factors import depth, gps, imu_factor, priors, reprojection, robust
 from okvis2x_tpu_torch.imu.preintegration import ImuParams
+from okvis2x_tpu_torch.mapping import icp_factor
 from okvis2x_tpu_torch.solver.problem import BAProblem, apply_delta, free_mask
 from okvis2x_tpu_torch.utils import forward_ad
 
@@ -92,6 +93,9 @@ class SolverConfig(NamedTuple):
     # use_depth adds their rows (the caller knows whether any is valid)
     depth_onesided: bool = True
     use_depth: bool = False
+    # the grid config (mapping.submap.SubmapConfig) of the problem's icp_map;
+    # None leaves the per-point submap-ICP rows out
+    icp_cfg: object = None
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -253,6 +257,41 @@ def _linearize_gps(p: BAProblem, cfg: SolverConfig):
     return r, [(Jf, fi * 15), (J4, torch.full_like(fi, p.P - 4))], p.gps_valid
 
 
+def _linearize_icp(p: BAProblem, cfg: SolverConfig):
+    """Per-point submap-ICP rows (the reference's live SubmapIcpError): the
+    residual of each point against the field of the submap anchored at
+    window frame icp_a, with Jacobians on both the anchor's and the owner's
+    pose, re-evaluated every iteration: (r (Q, 1), blocks, valid (Q,))."""
+    z6 = torch.zeros(6, dtype=p.T_WS.dtype, device=p.T_WS.device)
+    one_true = torch.ones((1,), dtype=torch.bool, device=p.T_WS.device)
+
+    def one(T_a, T_b, pt, si):
+        def f(da, db):
+            r = icp_factor.icp_residuals(
+                p.icp_map, cfg.icp_cfg, se3.retract(T_a, da), se3.retract(T_b, db),
+                pt[None, :], one_true, sigma=1.0)[0][0] * si
+            return r, r
+
+        (Ja, Jb), r = jacfwd(f, argnums=(0, 1), has_aux=True)(z6, z6)
+        return r, Ja, Jb
+
+    a, b = p.icp_a, p.icp_b
+    T_a, T_b = p.T_WS[a], p.T_WS[b]
+    with forward_ad.LOCK:
+        r, Ja, Jb = vmap(one)(T_a, T_b, p.icp_p_B, p.icp_si)
+    # which rows count, at the poses themselves (the rows above are at the
+    # retraction of a zero increment)
+    _, use = icp_factor.icp_residuals(p.icp_map, cfg.icp_cfg, T_a, T_b, p.icp_p_B,
+                                      torch.ones_like(p.icp_valid), sigma=1.0)
+    return (r[:, None], [(_pad15(Ja[:, None, :], 0), a * 15), (_pad15(Jb[:, None, :], 0), b * 15)],
+            use & p.icp_valid)
+
+
+def _icp_enabled(p: BAProblem, cfg: SolverConfig) -> bool:
+    return (cfg.icp_cfg is not None and p.icp_a is not None and p.icp_a.shape[0] > 0
+            and p.icp_map is not None)
+
+
 def _linearize_ext_priors(p: BAProblem):
     """Unary pose priors on the camera extrinsics T_SC (online calibration),
     in the columns K * 15 + 6 * c."""
@@ -375,8 +414,8 @@ def linearize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Lineariz
         b_l.index_add_(0, p.obs_lm, -torch.einsum("nri,nr->ni", Jh_d, r_d))
         W.index_add_(0, p.obs_lm, torch.einsum("nrp,nri->npi", Jrow_d, Jh_d))
 
-    # priors, IMU links, relative-pose edges, GNSS fixes and extrinsics
-    # priors: blocks added to the reduced system (the columns of frozen
+    # priors, IMU links, relative-pose edges, GNSS fixes, extrinsics priors
+    # and submap-ICP points: blocks added to the reduced system (the columns of frozen
     # parameters are cleared by the gauge fixing below); families of zero
     # capacity are skipped
     fams = list(_linearize_priors(p))
@@ -388,6 +427,8 @@ def linearize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Lineariz
         fams.append(_linearize_gps(p, cfg))
     if cfg.use_ext_priors:
         fams.append(_linearize_ext_priors(p))
+    if _icp_enabled(p, cfg):
+        fams.append(_linearize_icp(p, cfg))
     for r_, blocks, v_ in fams:
         _accumulate_blocks(H_ff, b_f, r_, blocks, v_)
         cost = cost + 0.5 * torch.sum((r_ * v_.to(dtype)[:, None]) ** 2)
@@ -446,6 +487,14 @@ def compute_cost(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> torch
     if cfg.use_ext_priors:
         r_e = priors.pose_prior_residual(p.ext_prior_T, p.T_SC, p.ext_prior_sqrt_info)
         cost = cost + 0.5 * torch.sum((r_e * p.ext_prior_valid.to(dtype)[:, None]) ** 2)
+
+    if _icp_enabled(p, cfg):
+        # every row's own poses: the same arithmetic as one point at a time
+        r_icp, use_icp = icp_factor.icp_residuals(
+            p.icp_map, cfg.icp_cfg, p.T_WS[p.icp_a], p.T_WS[p.icp_b], p.icp_p_B,
+            torch.ones_like(p.icp_valid), sigma=1.0)
+        m = (use_icp & p.icp_valid).to(dtype)
+        cost = cost + 0.5 * torch.sum((r_icp * p.icp_si * m) ** 2)
     return cost
 
 

@@ -5,12 +5,11 @@ problem is a set of fixed-capacity tensors with validity masks; graph
 surgery is index/mask rewrites on the host.
 
 Capacities: K frames, L landmarks, C cameras, N observations, M IMU links,
-R relative-pose edges, G GNSS rows.  Reduced (frame) system layout,
+R relative-pose edges, G GNSS rows, Q submap-ICP points.  Reduced (frame) system layout,
 dimension P = K*15 + C*6 + 4:
     frame k: [k*15 : k*15+6] pose tangent, [k*15+6 : k*15+15] speed/bias
     camera c extrinsics: [K*15 + c*6 : K*15 + (c+1)*6]
     4-dof world->GNSS alignment T_GW: the last 4 columns
-Per-point submap ICP rows are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -79,6 +78,17 @@ class BAProblem(NamedTuple):
     gps_r_SA: torch.Tensor  # (3,)
     gps_sqrt_info: torch.Tensor  # (G, 3, 3)
     gps_valid: torch.Tensor  # (G,) bool
+    # -- per-point submap ICP rows (the reference's live SubmapIcpError
+    # factors): each point, measured in the body frame of window frame
+    # icp_b, against the occupancy field of `icp_map` (a mapping.submap
+    # Submap) whose anchor is window frame icp_a; both poses iterate in the
+    # solve.  The grid's config travels in SolverConfig.icp_cfg. -----------
+    icp_a: torch.Tensor | None = None  # (Q,) int anchor frame
+    icp_b: torch.Tensor | None = None  # (Q,) int point-owner frame
+    icp_p_B: torch.Tensor | None = None  # (Q, 3) points in the owner's body frame
+    icp_si: torch.Tensor | None = None  # (Q,) residual whitening (1 / sigma)
+    icp_valid: torch.Tensor | None = None  # (Q,) bool
+    icp_map: object = None
 
     @property
     def K(self) -> int:
@@ -112,7 +122,7 @@ def empty_pre(M: int, dtype, device=None) -> Preintegrated:
 
 
 def empty_problem(
-    K: int, L: int, C: int, N: int, M: int, R: int = 0, G: int = 0,
+    K: int, L: int, C: int, N: int, M: int, R: int = 0, G: int = 0, Q: int = 0,
     dtype=torch.float64, device=None,
 ) -> BAProblem:
     """Allocate an all-invalid problem of the given capacities."""
@@ -167,6 +177,12 @@ def empty_problem(
         gps_r_SA=torch.zeros((3,), **kw),
         gps_sqrt_info=torch.eye(3, **kw).repeat(G, 1, 1),
         gps_valid=torch.zeros((G,), **b),
+        icp_a=torch.zeros((Q,), **i64) if Q else None,
+        icp_b=torch.zeros((Q,), **i64) if Q else None,
+        icp_p_B=torch.zeros((Q, 3), **kw) if Q else None,
+        icp_si=torch.ones((Q,), **kw) if Q else None,
+        icp_valid=torch.zeros((Q,), **b) if Q else None,
+        icp_map=None,
     )
 
 

@@ -5,8 +5,8 @@ process of its own on two cores), and again on an extended-layout dataset
 with a GNSS stream and online extrinsics calibration in the config, and on
 one with a depth0/ stream in the `rgbd` and `depth` modes; the `slam` mode
 on a synthetic dataset; the recorder; the config's calibration sigmas; and
-what the port refuses (LiDAR, the brick-sparse grid, meshes, a missing CUDA
-device)."""
+what the port refuses (the brick-sparse grid, meshes, a missing CUDA
+device).  The lidar mode is in tests/test_torch_lidar_app.py."""
 
 import filecmp
 import os
@@ -436,17 +436,14 @@ def test_record_mode_round_trip(tmp_path):
     assert sum(1 for k, _ in b.events() if k == "imu") > 50
 
 
-@pytest.mark.parametrize("case", ["lidar", "brick-grid", "mesh-export"])
+@pytest.mark.parametrize("case", ["brick-grid", "mesh-export"])
 def test_unported_modes_raise(case, tmp_path):
-    """What waits for A5 says so, before the app writes anything: the lidar
-    mode, an se2.yaml whose resolution needs the brick-sparse grid (25.6 m at
-    0.025 m), and the submap mesh export."""
+    """What waits for A5 says so, before the app writes anything: an se2.yaml
+    whose resolution needs the brick-sparse grid (25.6 m at 0.025 m), and
+    the submap mesh export."""
     out = str(tmp_path / "out")
     with pytest.raises(NotImplementedError, match="A5"):
-        if case == "lidar":
-            okvis2x_app.main(["--synthetic-test", "--mode", "lidar", "--output", out,
-                              "--device", "cpu"])
-        elif case == "brick-grid":
+        if case == "brick-grid":
             se2 = str(tmp_path / "se2.yaml")
             with open(se2, "w") as f:
                 f.write("map:\n  dim: [25.6, 25.6, 25.6]\n  res: 0.025\n")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions,
 and the port's device code that has no kernel of its own (the depth nets,
-the occupancy grid, the depth modes of the app) on the card against the CPU.
+the occupancy grid, the submap-ICP rows, the LiDAR pipeline, the mapping
+modes of the app) on the card against the CPU.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device
 (all but the last, which checks what happens without one).
@@ -290,10 +291,84 @@ def test_cuda_occupancy_grid_matches_cpu(cuda):
     assert (ia - ib).abs().max() < 1e-5 and (ca - cb).abs().max() < 1e-6
 
 
-@pytest.mark.parametrize("mode", ["rgbd", "depth"])
+def icp_problem(device, Q=64):
+    """tests/test_icp_solver.py's problem, the port's alone: frame 0 anchors
+    a 5 cm grid with a wall at 2 m (pose prior, fixed), frame 1 owns Q
+    points of the wall but starts 6 cm off."""
+    from okvis2x_tpu_torch.cameras import pinhole
+    from okvis2x_tpu_torch.mapping import submap
+    from okvis2x_tpu_torch.solver import gauss_newton as gn
+    from okvis2x_tpu_torch.solver import problem as prb
+
+    cfg = submap.SubmapConfig(dim=96, res=0.05, band_samples=16)
+    f64 = dict(dtype=torch.float64, device=device)
+    sm = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, torch.float64, device)
+    xs = np.linspace(-1.8, 1.8, 72)
+    gx, gy = np.meshgrid(xs, xs)
+    end = torch.as_tensor(np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, 2.0)], -1), **f64)
+    for _ in range(3):
+        sm = submap.integrate_rays(sm, cfg, torch.zeros(3, **f64), end,
+                                   torch.ones(len(end), dtype=torch.bool, device=device), 0.05)
+    rng = np.random.default_rng(5)
+    pts = np.stack([rng.uniform(-1.5, 1.5, Q), rng.uniform(-1.5, 1.5, Q), np.full(Q, 2.0)], -1)
+    T0, T1 = np.r_[0, 0, 0, 0, 0, 0, 1.0], np.r_[0, 0, -0.06, 0, 0, 0, 1.0]
+    b = dict(dtype=torch.bool, device=device)
+    p = prb.empty_problem(K=2, L=4, C=1, N=4, M=0, R=1, G=0, Q=Q, **f64)._replace(
+        T_WS=torch.as_tensor(np.stack([T0, T1]), **f64), frame_valid=torch.ones(2, **b),
+        pose_fixed=torch.tensor([True, False], device=device), sb_fixed=torch.ones(2, **b),
+        lm_fixed=torch.ones(4, **b), pose_prior_T=torch.as_tensor(np.stack([T0, T0]), **f64),
+        pose_prior_sqrt_info=torch.as_tensor(np.stack([100 * np.eye(6), 0 * np.eye(6)]), **f64),
+        pose_prior_valid=torch.tensor([True, False], device=device),
+        icp_a=torch.zeros(Q, dtype=torch.int64, device=device),
+        icp_b=torch.ones(Q, dtype=torch.int64, device=device),
+        icp_p_B=torch.as_tensor(pts, **f64), icp_si=torch.full((Q,), 10.0, **f64),
+        icp_valid=torch.ones(Q, **b), icp_map=sm)
+    cam = pinhole.make_pinhole(400.0, 400.0, 320.0, 240.0, 640, 480, model="none",
+                               dist_params=[], device=device)
+    return p, gn.stack_cameras([cam]), gn.SolverConfig(icp_cfg=cfg, estimate_landmarks=False,
+                                                       max_iterations=5)
+
+
+def test_cuda_icp_rows_match_cpu(cuda):
+    """The per-point submap-ICP rows on the card: the linearisation (H, b,
+    cost), the cost and 5 LM iterations against the CPU's."""
+    from okvis2x_tpu_torch.solver import gauss_newton as gn
+
+    out = {}
+    for dev in ("cpu", cuda):
+        p, cams, cfg = icp_problem(dev)
+        lin = gn.linearize(p, cams, cfg)
+        p_opt, cost = gn.optimize(p, cams, cfg)
+        out[str(dev)] = [x.cpu() for x in (lin.H_ff, lin.b_f, lin.cost, p_opt.T_WS, cost)]
+    (H0, b0, c0, T0, f0), (H1, b1, c1, T1, f1) = out["cpu"], out[str(cuda)]
+    assert (H0 - H1).abs().max() <= 1e-9 * H0.abs().max()
+    assert (b0 - b1).abs().max() <= 1e-9 * b0.abs().max()
+    assert abs(float(c0 - c1)) <= 1e-9 * float(c0)
+    assert (T0 - T1).abs().max() <= 1e-9 and abs(float(T1[1, 2])) < 0.03
+    assert abs(float(f0 - f1)) <= 1e-9 * max(float(f0), 1e-12)
+
+
+def test_cuda_drift_recovery_matches_cpu(cuda):
+    """The drift-recovery scenario of tests/test_lidar_vio.py on the card
+    (the whole LiDAR pipeline: deskew, filter, submap, per-point rows in the
+    window solve) lands where the CPU's does."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    T = {dev: np.array(chip_smoke.drift_recovery(128, dev).est.frames[-1].T_WS)
+         for dev in ("cpu", cuda)}
+    assert np.abs(T["cpu"][:3] - T[cuda][:3]).max() <= chip_smoke.DRIFT_CPU_TOL_M
+    assert abs(T[cuda][2]) < 0.03
+
+
+@pytest.mark.parametrize("mode", ["rgbd", "depth", "lidar"])
 def test_cuda_depth_modes_run_on_the_card(cuda, mode, tmp_path):
-    """`--mode rgbd` and `--mode depth` of the dataset app on cuda:0 by
-    default: both trajectories and map.ply, the submaps on the card."""
+    """`--mode rgbd`, `--mode depth` and `--mode lidar` of the dataset app on
+    cuda:0 by default: both trajectories and map.ply, the submaps on the
+    card."""
     import os
 
     from okvis2x_tpu_torch.apps import okvis2x_app

@@ -300,14 +300,14 @@ def test_lc_match_matches_jax():
 
 # ------------------------------------------------------- what is not ported
 @pytest.mark.parametrize("unported", [
-    "cap_icp", dict(segmentation="heuristic"),
+    dict(segmentation="net"), dict(segmentation="heuristic"),
     dict(deferred_frontend=True, segmentation="net"),
     dict(pipelined_solve=False, segmentation="net"),
 ])
 def test_unported_loop_closure_features_raise(unported):
-    """Semantic keypoint weighting (on the pipelined and the synchronous
-    path, and inside the deferred fused frontend) and live submap-ICP rows
-    raise instead of running something else."""
+    """Semantic keypoint weighting (the learned and the heuristic weights on
+    the pipelined path, the learned ones on the synchronous path and inside
+    the deferred fused frontend) raises instead of running something else."""
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig as TPipelineConfig
 
     cam = convert.camera(jax.tree.map(np.asarray, make_jest()[1]))
@@ -315,8 +315,4 @@ def test_unported_loop_closure_features_raise(unported):
     sync = dict(do_loop_closures=True, async_place_recognition=False, async_loop_closure=False)
     est_cfg = convert.estimator_config(EstimatorConfig())
     with pytest.raises(NotImplementedError):
-        if isinstance(unported, dict):
-            VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
-        else:
-            VioPipeline([cam], T_SC, convert.estimator_config(EstimatorConfig(cap_icp=64)),
-                        TPipelineConfig(**sync), device="cpu")
+        VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")

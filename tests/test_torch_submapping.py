@@ -2,7 +2,9 @@
 integration, interpolation, the observed mask, the occupied-voxel list and
 colour splatting on a 32^3 grid; the submapping interface's life cycle on
 both packages; the port's versions of the depth and colour cases of
-tests/test_submapping.py; and what the port refuses (ROADMAP.md, A5).
+tests/test_submapping.py; and what the port refuses (ROADMAP.md, A5).  The
+LiDAR half (integration, alignment edges) is held in
+tests/test_torch_lidar.py.
 
 The JAX functions run jitted, as the JAX package's interface runs them (XLA
 folds their `jnp.linspace` sample fractions differently outside a program).
@@ -261,16 +263,13 @@ def test_colour_submap_integration(tmp_path):
 
 
 def test_unported_submapping_refuses(tmp_path):
-    """The brick-sparse grid, LiDAR, alignment edges, mesh and VTK export
-    are not ported (A5) and say so."""
+    """The brick-sparse grid, mesh and VTK export are not ported (A5) and
+    say so."""
     _, cam = cams()
     si = SubmappingInterface(CFG, device="cpu")
     si.integrate_depth(0, I7, I7, cam, wall_depth(cam))
     for call in (lambda: si.export_mesh_ply(str(tmp_path / "m.ply"), si.active),
-                 lambda: si.export_vtk_bboxes(str(tmp_path / "b.vtk")),
-                 lambda: si.integrate_lidar(0, I7, I7, np.zeros((4, 3))),
-                 lambda: si.make_alignment_edge(si.active, si.active),
-                 lambda: SubmappingInterface(CFG, align_callback=print, device="cpu")):
+                 lambda: si.export_vtk_bboxes(str(tmp_path / "b.vtk"))):
         with pytest.raises(NotImplementedError, match="A5"):
             call()
     from okvis2x_tpu.mapping import brick as jbrick
@@ -289,5 +288,5 @@ def test_from_se2_dense_matches_jax():
         a, b = SubmappingConfig.from_se2(se2_t), jsub.SubmappingConfig.from_se2(se2_j)
         assert tuple(a.submap) == tuple(b.submap)
         for k in ("new_submap_overlap", "new_submap_kf_count", "min_frames_integrated",
-                  "depth_stride", "max_depth"):
+                  "align_points", "sensor_sigma", "depth_stride", "max_depth"):
             assert getattr(a, k) == getattr(b, k), k
