@@ -59,7 +59,7 @@
    verification's mutual match must equal the plain version's, and the
    fused kernel must have been launched from the sites "vocab" and
    "reloc";
-7b. the dataset app: the port's `generate` writes the first 12 frames of
+7b. the dataset app: the port's `generate` writes the first 8 frames of
    that circuit (752x480 PNGs, 200 Hz IMU, ground truth) in the EuRoC
    layout under build/app_phase/, with an okvis2.yaml-schema config; the
    first and last frames read back through `EurocDataset` must equal
@@ -107,6 +107,20 @@
    grid, submaps of up to 50 keyframes), `--mode depth --se2-config`: the
    same ATE, keyframe, map and grid checks, and map.ply must carry points
    with RGB;
+7e'. the fine grid: the app in depth mode on the first 8 frames of that
+   dataset under the depth mode's se2.yaml at the reference's 0.025 m
+   (1024^3: the brick-sparse grid, a 128^3 table and 8192 bricks a submap):
+   the ATEs at most twice the JAX app's on the same frames (floor 0.05 m),
+   the bricks allocated, the grids and map.ply within 1% and 5% of the JAX
+   app's; map.ply stays empty in both (no voxel of the capped pools reaches
+   its log-odds 1.0), so the app's export is also written at log-odds 0 and
+   held to the JAX app's: its points and their counts in 2 m cubes within
+   5%, their mean position within 1 cm and mean colour within 1 of 255;
+   the RGB-D phase's fused keyframe integrated into that grid on the
+   card must equal the CPU's (table, slots' bricks, count and counts; log-odds
+   within 1e-5), with one integration's device time; the depth phase's dense
+   submap exported as a PLY mesh and its boxes as VTK, the triangles and the
+   file as the CPU's;
 7f. LiDAR through the app: `generate` writes the first LIDAR_FRAMES frames of
    the 8 m circuit (752x480, 20 Hz, seed 3) and, through the port's
    `DatasetWriter`, tools/lidar_scale_run.py's hall sweeps (512 rays a 0.1 s
@@ -280,7 +294,56 @@ JAX_DEPTH = {
                   observed_voxels=131106, positive_voxels=36281,
                   voxels_above_1=198),
 }
+# the fine-grid run: the depth mode's se2.yaml at the reference's 0.025 m
+# (config/euroc/se2.yaml: 25.6 m at 0.025 m, 1024^3), so a brick-sparse grid of
+# a 128^3 table and 8192 bricks (8 MiB of table, 32 MiB of pool a submap), on
+# the first FINE_FRAMES frames of the depth phase's dataset
+FINE_FRAMES = 8
+FINE_SE2 = DEPTH_SE2.replace("res: 0.2", "res: 0.025")
+# the JAX app on the same frames on the CPU (`python tests/test_torch_depth.py
+# fine 8`, PERF.md section 4): ATEs (m), keyframes, map.ply, `grid_stats`
+# with the bricks allocated; the port is held to twice the ATEs (floor
+# 0.05 m), the bricks and the grids within GRID_TOL and the points within
+# MAP_POINTS_TOL
+# (the view of the sinusoid scene at 752x480 touches more bricks than the pool
+# holds within four keyframes: the first submap fills its 8192 bricks, the
+# overlap test then finds its points in unallocated bricks and starts a
+# second, which fills too; no voxel of the capped pools reaches map.ply's 1.0)
+JAX_FINE = dict(ate_online_m=0.10472332955850064, ate_final_m=0.10422893980224059,
+                n_integrated=8, map_points=0, n_submaps=2, bricks=16384,
+                total_weight=568568.0, logodds_sum=-2455.0247183618194,
+                observed_voxels=505824, positive_voxels=90526, voxels_above_1=0)
 MAP_POINTS_TOL = 0.05
+# the fine run's export: no voxel of its capped pools reaches map.ply's 1.0,
+# so the app's occupied-voxel export (the occupied list over the pools, the
+# colours through the table) is also written at log-odds 0, the voxels with
+# surface evidence, and held to the JAX app's (JAX_FINE_EXPORT): the points
+# and each EXPORT_CELL_M cube's count within MAP_POINTS_TOL, their mean
+# position within EXPORT_MEAN_TOL_M and their mean colour within
+# EXPORT_RGB_TOL of 255
+FINE_EXPORT_THRESHOLD = 0.0
+EXPORT_CELL_M = 2.0
+EXPORT_MEAN_TOL_M = 0.01
+EXPORT_RGB_TOL = 1.0
+# the JAX app's export (`python tests/test_torch_depth.py fine 8`)
+JAX_FINE_EXPORT = dict(
+    export_points=90526,
+    export_mean_m=[-7.371186702162934, -0.4045566224068224, 8.912093503523803],
+    export_rgb_mean=[122.28949694010561, 122.28949694010561, 122.28949694010561],
+    export_cells={
+        "-7,-5,5": 26, "-6,-5,5": 80, "-6,-5,6": 13, "-6,-4,4": 122, "-6,-4,5": 141,
+        "-6,-3,4": 176, "-6,-3,5": 9, "-6,-2,4": 3, "-6,-2,5": 5, "-6,0,5": 6, "-6,1,5": 106,
+        "-6,2,5": 379, "-6,3,5": 50, "-6,3,6": 6, "-5,-5,5": 9, "-5,-4,4": 996, "-5,-4,5": 266,
+        "-5,-3,3": 323, "-5,-3,4": 2783, "-5,-3,5": 320, "-5,-3,6": 6, "-5,-2,3": 42,
+        "-5,-2,4": 1601, "-5,-2,5": 229, "-5,-2,6": 20, "-5,-1,4": 966, "-5,-1,5": 395,
+        "-5,0,4": 1156, "-5,0,5": 579, "-5,1,4": 2616, "-5,1,5": 680, "-5,2,4": 3026,
+        "-5,2,5": 426, "-5,3,5": 20, "-5,3,6": 6, "-4,-4,4": 315, "-4,-4,5": 2, "-4,-3,3": 442,
+        "-4,-3,4": 9248, "-4,-3,5": 66, "-4,-2,3": 1159, "-4,-2,4": 11228, "-4,-2,5": 108,
+        "-4,-1,3": 397, "-4,-1,4": 14978, "-4,-1,5": 86, "-4,0,3": 319, "-4,0,4": 14355,
+        "-4,0,5": 89, "-4,1,3": 854, "-4,1,4": 12772, "-4,1,5": 18, "-4,2,3": 72,
+        "-4,2,4": 4704, "-4,2,5": 49, "-3,-4,4": 10, "-3,-3,3": 74, "-3,-3,4": 569,
+        "-3,-2,3": 31, "-3,-2,4": 398, "-3,-1,3": 12, "-3,-1,4": 424, "-3,-1,5": 1,
+        "-3,0,3": 1, "-3,0,4": 158})
 GRID_TOL = 0.01  # the grids' counts and voxel sets (grid_stats) against the JAX app's
 FUSED_TOL_M = 1e-3  # the card's fused keyframe depth against the CPU's
 FUSED_MASK_TOL = 1e-3
@@ -1852,19 +1915,81 @@ def grid_stats(si):
     package's or the port's) summed over its submaps: the submaps, the
     integration counts, the log-odds, the voxels observed (count > 0), those
     with positive log-odds (surface evidence) and those above 1.0 (map.ply's
-    threshold)."""
+    threshold); for brick-sparse grids over their pools' voxels, with the
+    bricks allocated (`bricks`)."""
     import torch
 
     def host(x):
         return (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)).astype(np.float64)
 
-    weight = [host(e.sm.weight) for e in si.maps]
-    logodds = [host(e.sm.logodds) for e in si.maps]
-    return dict(n_submaps=len(si.maps), total_weight=float(sum(w.sum() for w in weight)),
-                logodds_sum=float(sum(lo.sum() for lo in logodds)),
-                observed_voxels=int(sum((w > 0).sum() for w in weight)),
-                positive_voxels=int(sum((lo > 0).sum() for lo in logodds)),
-                voxels_above_1=int(sum((lo > 1.0).sum() for lo in logodds)))
+    bricks = [e.sm for e in si.maps if hasattr(e.sm, "pool_lo")]
+    if bricks:  # the pool's voxels (the trash voxel left out) and the bricks allocated
+        weight = [host(sm.pool_w[:-1]) for sm in bricks]
+        logodds = [host(sm.pool_lo[:-1]) for sm in bricks]
+    else:
+        weight = [host(e.sm.weight) for e in si.maps]
+        logodds = [host(e.sm.logodds) for e in si.maps]
+    out = dict(n_submaps=len(si.maps), total_weight=float(sum(w.sum() for w in weight)),
+               logodds_sum=float(sum(lo.sum() for lo in logodds)),
+               observed_voxels=int(sum((w > 0).sum() for w in weight)),
+               positive_voxels=int(sum((lo > 0).sum() for lo in logodds)),
+               voxels_above_1=int(sum((lo > 1.0).sum() for lo in logodds)))
+    if bricks:
+        out["bricks"] = int(sum(int(sm.n_alloc) for sm in bricks))
+    return out
+
+
+def read_ply_points(path):
+    """The vertices (N, 3) and their RGB (N, 3; None without colour) of an
+    ASCII point PLY as `export_occupied_ply` writes it."""
+    n, rgb = ply_vertices(path)
+    with open(path) as f:
+        for ln in f:
+            if ln.strip() == "end_header":
+                break
+        rows = np.loadtxt(f, ndmin=2).reshape(n, 6 if rgb else 3)
+    return rows[:, :3], (rows[:, 3:] if rgb else None)
+
+
+def export_stats(si, path, threshold):
+    """An app's occupied-voxel export (its submapping interface's, either
+    package's) at log-odds `threshold`, written to `path` and read back: the
+    points, their mean position, their mean colour (0-255) and their count in
+    each EXPORT_CELL_M cube of the world ("i,j,k": n)."""
+    import collections
+
+    n = si.export_occupied_ply(path, threshold)
+    pts, rgb = read_ply_points(path)
+    cells = collections.Counter(map(tuple, np.floor(pts / EXPORT_CELL_M).astype(int).tolist()))
+    return dict(export_points=int(n), export_mean_m=pts.mean(0).tolist() if n else None,
+                export_rgb_mean=rgb.mean(0).tolist() if n and rgb is not None else None,
+                export_cells={",".join(map(str, k)): v for k, v in sorted(cells.items())})
+
+
+def check_export(what, ex, ref):
+    """Holds `export_stats` to the JAX app's `ref`: the points and the cubes'
+    counts (their L1 distance) within MAP_POINTS_TOL of its points, the mean
+    position within EXPORT_MEAN_TOL_M, the mean colour within EXPORT_RGB_TOL."""
+    n_ref = ref["export_points"]
+    cells = set(ex["export_cells"]) | set(ref["export_cells"])
+    l1 = sum(abs(ex["export_cells"].get(c, 0) - ref["export_cells"].get(c, 0)) for c in cells)
+    mean_gap = (float(np.abs(np.subtract(ex["export_mean_m"], ref["export_mean_m"])).max())
+                if ex["export_points"] else np.inf)
+    rgb_gap = (float(np.abs(np.subtract(ex["export_rgb_mean"], ref["export_rgb_mean"])).max())
+               if ex["export_rgb_mean"] is not None else np.inf)
+    print(f"{what}: export at log-odds > {FINE_EXPORT_THRESHOLD}: {ex['export_points']} points "
+          f"(JAX app {n_ref}), {len(ex['export_cells'])} cubes of {EXPORT_CELL_M} m "
+          f"({len(ref['export_cells'])}), L1 of their counts {l1}; mean position gap "
+          f"{mean_gap:.2e} m, mean colour gap {rgb_gap:.2e} of 255")
+    if not (n_ref > 0 and abs(ex["export_points"] - n_ref) <= MAP_POINTS_TOL * n_ref
+            and l1 <= MAP_POINTS_TOL * n_ref):
+        raise RuntimeError(f"{what}: the export has {ex['export_points']} points, L1 {l1} over "
+                           f"the cubes, the JAX app's {n_ref} points (tolerance "
+                           f"{MAP_POINTS_TOL:.0%})")
+    if not mean_gap <= EXPORT_MEAN_TOL_M or not rgb_gap <= EXPORT_RGB_TOL:
+        raise RuntimeError(f"{what}: the export's mean position differs from the JAX app's by "
+                           f"{mean_gap} m (tolerance {EXPORT_MEAN_TOL_M}), its mean colour by "
+                           f"{rgb_gap} (tolerance {EXPORT_RGB_TOL})")
 
 
 def depth_metrics(rec, ds_dir, out):
@@ -2022,7 +2147,8 @@ def depth_phase(dev, card, mode):
     (`grid_stats`) against the JAX app's on the same frames (JAX_DEPTH), RGB
     in map.ply in depth mode; in rgbd mode on the card also
     `depth_device_checks`.  Prints the stage means, the peak memory and the
-    launches by site; returns them."""
+    launches by site; returns them, the recorder (its submapping interface
+    and last integration), the fusion capture and the dataset's directory."""
     import os
 
     import torch
@@ -2109,6 +2235,190 @@ def depth_phase(dev, card, mode):
           f"site {sites} ({card})")
     if mode == "rgbd":
         depth_device_checks(dev, card, cap, rec.last_integration)
+    return sites, rec, cap, ds_dir
+
+
+def fine_args(ds_dir, root, n_frames=FINE_FRAMES):
+    """The app's arguments for the fine-grid run on the depth phase's dataset
+    `ds_dir` (its okvis2.yaml beside it) with FINE_SE2 written under `root`,
+    output in `root`/out, without the device."""
+    import os
+
+    os.makedirs(root, exist_ok=True)
+    se2 = os.path.join(root, "se2.yaml")
+    with open(se2, "w") as f:
+        f.write(FINE_SE2)
+    return ["--dataset", ds_dir, "--config", os.path.join(os.path.dirname(ds_dir), "okvis2.yaml"),
+            "--mode", "depth", "--reader", "xdataset", "--se2-config", se2,
+            "--output", os.path.join(root, "out"), "--max-frames", str(n_frames)]
+
+
+def fine_device_checks(dev, card, cap, integration, dense_si):
+    """On the RGB-D phase's last fused keyframe (its 22,560 rays) the card's
+    brick-sparse grid at 0.025 m against the CPU's: the table, the slots'
+    brick coordinates and the allocated count equal, the counts equal and the
+    log-odds within 1e-5; one integration's device time (CUDA events) and
+    peak memory.  Then the depth phase's dense submap exported as a PLY mesh
+    and its submaps' bounding boxes as VTK from the card, against the
+    triangles and the VTK file of a copy on the CPU."""
+    import os
+
+    import torch
+    from okvis2x_tpu_torch.apps.okvis2x_app import fused_depth
+    from okvis2x_tpu_torch.core import se3
+    from okvis2x_tpu_torch.io.config import load_submap_config
+    from okvis2x_tpu_torch.mapping import mesh, submap
+    from okvis2x_tpu_torch.pipeline.submapping import (SubmapEntry, SubmappingConfig,
+                                                      SubmappingInterface)
+
+    (left, right, fx, baseline), _ = cap.stereo_args
+    (_, srcs, K, T_rs), _ = cap.mvs_args
+    _, T_WK, T_WC, cam = integration[:4]
+    d, sg = fused_depth(left, right, fx, baseline, srcs, K, T_rs)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fine_phase")
+    cfg = SubmappingConfig.from_se2(load_submap_config(os.path.join(root, "se2.yaml"))).submap
+    T_KC = se3.se3_multiply(
+        se3.se3_inverse(torch.as_tensor(np.asarray(T_WK), dtype=torch.float32)).double(),
+        torch.as_tensor(np.asarray(T_WC, np.float64))).float()
+    grids = {}
+    for where, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+        sm = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, device=dv)
+        for _ in range(3):
+            sm = submap.integrate_depth_image(sm, cfg, cam.to(device=dv), T_KC.to(dv),
+                                              d.float().to(dv), sg.float().to(dv))
+        grids[where] = {k: x.cpu() for k, x in sm._asdict().items()}
+    a, b = grids["card"], grids["cpu"]
+    same = {k: torch.equal(a[k], b[k]) for k in ("table", "brick_xyz", "n_alloc", "pool_w")}
+    lo_err = float((a["pool_lo"] - b["pool_lo"]).abs().max())
+    if not all(same.values()) or not lo_err <= 1e-5:
+        raise RuntimeError(f"fine grid: the card's brick grid differs from the CPU's: equal "
+                           f"{same}, log-odds max |err| {lo_err}")
+    n_rays = int(d[::4, ::4].numel())
+    sm0 = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, device=dev)
+    args = (cam.to(device=dev), T_KC.to(dev), d.float().to(dev), sg.float().to(dev))
+    t_int = time_ms(lambda: submap.integrate_depth_image(sm0, cfg, *args), 10)
+    peak = peak_mib(lambda: submap.integrate_depth_image(sm0, cfg, *args))
+    print(f"fine grid on one keyframe's inputs ({left.shape[1]}x{left.shape[0]}, {n_rays} rays x "
+          f"{cfg.samples_per_ray + cfg.band_samples} samples, three integrations) into "
+          f"{cfg.dim}^3 at {cfg.res} m ({cfg.table_dim}^3 table, {cfg.pool_bricks} bricks): "
+          f"{dev} vs CPU table, brick coordinates, {int(a['n_alloc'])} bricks and counts equal, "
+          f"log-odds max |err| {lo_err:.2e}; one integration {t_int:.3f} ms (CUDA events, mean "
+          f"of 10), peak {peak:.1f} MiB above its inputs ({card})")
+
+    # the exports of the depth phase's dense submaps, from the card and the CPU
+    cpu_si = SubmappingInterface(dense_si.cfg, device="cpu")
+    cpu_si.maps = [SubmapEntry(sid=e.sid, anchor_fid=e.anchor_fid,
+                               sm=type(e.sm)(*[x.cpu() for x in e.sm]),
+                               col=None if e.col is None else type(e.col)(*[x.cpu()
+                                                                            for x in e.col]))
+                   for e in dense_si.maps]
+    t0 = time.perf_counter()
+    n = dense_si.export_mesh_ply(os.path.join(root, "mesh.ply"), dense_si.maps[0])
+    t_mesh = time.perf_counter() - t0
+    tris = mesh.submap_mesh(cpu_si.maps[0].sm, cpu_si.cfg.submap)
+    boxes = []
+    for where, si in (("card", dense_si), ("cpu", cpu_si)):
+        with open(si.export_vtk_bboxes(os.path.join(root, f"boxes_{where}.vtk"))) as f:
+            boxes.append(f.read())
+    if n != len(tris) or not n > 0:
+        raise RuntimeError(f"mesh export: {n} triangles from the card, {len(tris)} on the CPU")
+    if boxes[0] != boxes[1]:
+        raise RuntimeError("VTK export: the card's bounding boxes differ from the CPU's")
+    print(f"exports of the depth phase's dense submap: a mesh of {n} triangles (CPU {len(tris)}) "
+          f"written with colour in {t_mesh * 1e3:.1f} ms; VTK boxes of {len(dense_si.maps)} "
+          f"submaps equal to the CPU's ({card})")
+    return t_int
+
+
+def fine_phase(dev, card, ds_dir, cap=None, integration=None, dense_si=None):
+    """The port's app in depth mode at the reference's 0.025 m (FINE_SE2, the
+    brick-sparse grid) on the first FINE_FRAMES frames of the depth phase's
+    dataset `ds_dir`, under build/fine_phase/, on the default device (cuda:0)
+    or on `dev` when that is the CPU.  Checks the ATEs, the keyframes
+    integrated, the bricks, the grids and map.ply against the JAX app's on
+    the same frames (JAX_FINE), and the export at log-odds 0
+    (`check_export`); on the card also `fine_device_checks`.
+    Prints the frame times, the stage means, the bricks and the peak memory;
+    returns the launches by site."""
+    import os
+
+    import torch
+    from okvis2x_tpu_torch.apps import okvis2x_app
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.pipeline.submapping import SubmappingInterface
+    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
+    from okvis2x_tpu_torch.utils import timing
+
+    what = "fine grid"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fine_phase")
+    argv = fine_args(ds_dir, root)
+    out = os.path.join(root, "out")
+    start_mib = None
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    else:
+        start_mib = torch.cuda.memory_allocated(dev) / 2**20
+        torch.cuda.reset_peak_memory_stats(dev)
+    timing.reset()
+    hamming.reset_launch_counts()
+    t0 = time.perf_counter()
+    with DepthRecorder(VioPipeline, SubmappingInterface) as rec:
+        okvis2x_app.main(argv)
+    t_run = time.perf_counter() - t0
+    sites = dict(hamming.hamming_match.site_launches)
+    ERRORS.check(what)
+    if rec.pipe.device != dev:
+        raise RuntimeError(f"{what}: the app ran on {rec.pipe.device}, not {dev}")
+    cfg = rec.submapping.cfg.submap
+    if not (hasattr(cfg, "table_dim") and cfg.dim == 1024):
+        raise RuntimeError(f"{what}: the app's grid is {cfg}, not the 1024^3 brick grid")
+    m = depth_metrics(rec, ds_dir, out)
+    ref = JAX_FINE
+    if m["n_frames"] != FINE_FRAMES:
+        raise RuntimeError(f"{what}: trajectory.tum has {m['n_frames']} rows for {FINE_FRAMES}")
+    bounds = {k: max(2.0 * ref[k], 0.05) for k in ("ate_online_m", "ate_final_m")}
+    for k, bd in bounds.items():
+        if not m[k] <= min(bd, ATE_LIMIT_M):
+            raise RuntimeError(f"{what}: {k} {m[k]} exceeds {min(bd, ATE_LIMIT_M)} m (twice the "
+                               f"JAX app's {ref[k]} m, floor 0.05 m, and at most {ATE_LIMIT_M})")
+    if not m["n_integrated"] >= ref["n_integrated"] or m["n_submaps"] != ref["n_submaps"]:
+        raise RuntimeError(f"{what}: {m['n_integrated']} keyframes integrated into "
+                           f"{m['n_submaps']} submaps, the JAX app {ref['n_integrated']} into "
+                           f"{ref['n_submaps']}")
+    if not abs(m["map_points"] - ref["map_points"]) <= MAP_POINTS_TOL * ref["map_points"]:
+        raise RuntimeError(f"{what}: map.ply has {m['map_points']} points, the JAX app's "
+                           f"{ref['map_points']} (tolerance {MAP_POINTS_TOL:.0%})")
+    for k in ("bricks", "total_weight", "logodds_sum", "observed_voxels", "positive_voxels"):
+        if not (ref[k] != 0 and abs(m[k] - ref[k]) <= GRID_TOL * abs(ref[k])):
+            raise RuntimeError(f"{what}: the grids' {k} is {m[k]}, the JAX app's {ref[k]} "
+                               f"(tolerance {GRID_TOL:.0%})")
+    ex = export_stats(rec.submapping, os.path.join(out, "map_evidence.ply"),
+                      FINE_EXPORT_THRESHOLD)
+    check_export(what, ex, JAX_FINE_EXPORT)
+    if dev.type == "cuda" and sites.get("assoc", 0) <= 0:
+        raise RuntimeError(f"{what}: the fused kernel's launches by site {sites} lack the "
+                           "association")
+    ms = np.asarray(rec.wall) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None)
+    print(f"{what}: okvis2x_app --mode depth --se2-config (25.6 m at {cfg.res} m: {cfg.dim}^3, "
+          f"a {cfg.table_dim}^3 table, {cfg.pool_bricks} bricks) on {rec.pipe.device}, "
+          f"{FINE_FRAMES} frames: {t_run:.1f} s; ATE online {m['ate_online_m']:.4f} m (bound "
+          f"{min(bounds['ate_online_m'], ATE_LIMIT_M):.4f}), final {m['ate_final_m']:.4f} m "
+          f"(bound {min(bounds['ate_final_m'], ATE_LIMIT_M):.4f}); {m['n_integrated']} keyframes "
+          f"integrated; bricks allocated {m['bricks']} (JAX app {ref['bricks']}); map.ply "
+          f"{m['map_points']} points, RGB {m['map_rgb']} (JAX app {ref['map_points']}); grids: "
+          f"counts {m['total_weight']:.0f} ({ref['total_weight']:.0f}), log-odds sum "
+          f"{m['logodds_sum']:.1f} ({ref['logodds_sum']:.1f}), observed {m['observed_voxels']} "
+          f"({ref['observed_voxels']}), log-odds > 0 {m['positive_voxels']} "
+          f"({ref['positive_voxels']}), > 1.0 {m['voxels_above_1']} ({ref['voxels_above_1']}); "
+          f"ms/frame p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max "
+          f"{ms.max():.1f}; 9 DepthAndIntegrate mean {timing.mean_ms('9 DepthAndIntegrate'):.2f} "
+          f"ms, window solve (2.5 CollectSolve) mean {timing.mean_ms('2.5 CollectSolve'):.2f} ms; "
+          f"peak allocated "
+          f"{'not measured' if peak is None else f'{peak:.1f} MiB ({start_mib:.1f} at the start)'}"
+          f"; fused match launches by site {sites} ({card})")
+    if dev.type == "cuda" and cap is not None:
+        fine_device_checks(dev, card, cap, integration, dense_si)
     return sites
 
 
@@ -2634,10 +2944,19 @@ def main() -> int:
                 t0 = time.perf_counter()
                 add_sites(gnss_phase(dev, card), "gnss")
                 print(f"GNSS phase: {time.perf_counter() - t0:.1f} s")
+                kept = {}
                 for mode in ("rgbd", "depth"):
                     t0 = time.perf_counter()
-                    add_sites(depth_phase(dev, card, mode), mode)
+                    sites, rec, cap, ds_dir = depth_phase(dev, card, mode)
+                    kept[mode] = (rec, cap, ds_dir)
+                    add_sites(sites, mode)
                     print(f"{mode} phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
+                (rgbd_rec, rgbd_cap, _), (depth_rec, _, depth_dir) = kept["rgbd"], kept["depth"]
+                add_sites(fine_phase(dev, card, depth_dir, rgbd_cap, rgbd_rec.last_integration,
+                                     depth_rec.submapping), "fine")
+                del kept, rgbd_rec, rgbd_cap, depth_rec
+                print(f"fine-grid phase: {time.perf_counter() - t0:.1f} s")
                 t0 = time.perf_counter()
                 add_sites(lidar_phase(dev, card, cpu_drift), "lidar")
                 print(f"LiDAR phase: {time.perf_counter() - t0:.1f} s")
@@ -2647,7 +2966,7 @@ def main() -> int:
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
     # times at 704x1024, the map matching's shape; launches over phases 4-9,
-    # the app, GNSS, RGB-D, depth-mode and LiDAR phases
+    # the app, GNSS, RGB-D, depth-mode, fine-grid and LiDAR phases
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

@@ -50,10 +50,12 @@ reader; GNSS fusion (the 4-dof alignment and its status machine, the
 asynchronous position rows) and online extrinsics calibration; RGB-D
 (per-keypoint depth priors and depth-initialised landmarks), the learned
 stereo and multi-view depth nets with the JAX package's shipped weights,
-and dense occupancy submaps with colour, which the app's rgbd and depth
-modes integrate keyframe by keyframe.  Semantic weighting, LiDAR, the
-brick-sparse grid, meshing, ROS2 and the multi-device ``parallel/`` solvers
-are not ported yet.
+and occupancy submaps with colour, which the app's rgbd and depth modes
+integrate keyframe by keyframe: dense grids, or brick-sparse ones at fine
+resolutions, with their meshes and bounding boxes exported; LiDAR-visual-
+inertial SLAM (sweep deskew, submap ICP rows, map-to-map alignment edges).
+Semantic weighting, ROS2 and the multi-device ``parallel/`` solvers are not
+ported yet.
 
 The entry points run on the first CUDA device unless the caller names
 another device (``device="cpu"`` for the CPU).

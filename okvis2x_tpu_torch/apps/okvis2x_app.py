@@ -16,7 +16,8 @@ against the last two of the four keyframes kept are fused by inverse
 variance and integrated into occupancy submaps.  ``depth``: the stereo
 depth alone is integrated, with cam0's image as colour when the config's
 ``camera_type`` of cam0 is ``rgb``.  Both write the occupied voxels to
-``map.ply``; ``--se2-config`` sets the grid (dense up to 256^3).
+``map.ply``; ``--se2-config`` sets the grid: dense up to 256^3, brick-sparse
+beyond (the reference's 25.6 m at 0.025 m is 1024^3).
 ``lidar``: the dataset's ``lidar0/`` sweeps are deskewed, filtered, held
 against the active submap as a live constraint and integrated into
 keyframe-anchored submaps whose map-to-map alignment edges join the window
@@ -113,7 +114,8 @@ def parse_args(argv=None):
     ap.add_argument("--dataset", required=False, help="dataset dir")
     ap.add_argument("--config", default=None, help="okvis2.yaml config")
     ap.add_argument("--se2-config", default=None,
-                    help="se2.yaml submap config (its grid resolution; dense up to 256^3)")
+                    help="se2.yaml submap config (its grid resolution is honoured: "
+                    "dense up to 256^3, brick-sparse beyond)")
     ap.add_argument("--mode", default="slam", choices=MODES)
     ap.add_argument("--reader", default="auto",
                     choices=["auto", "euroc", "xdataset", "leica", "rpg"])
@@ -221,8 +223,7 @@ def main(argv=None):
     if args.record:
         return record_mode(args)
     device = default_device() if args.device is None else torch.device(args.device)
-    # the grid before anything is written: a resolution that needs the
-    # brick-sparse grid is refused
+    # the grid before anything is written: a malformed se2.yaml fails here
     sub_cfg = submapping_config(args) if args.mode in MAPPING_MODES else None
 
     from okvis2x_tpu_torch.graph.estimator import EstimatorConfig

@@ -30,12 +30,15 @@ _UNDISTORT_ITERS = 7
 
 
 def _distort_radtan(params: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    # doubling by a sum, and the parameters and 1.0 lifted into a transform
+    # of xy, keep a Jacobian's ops in C++ (`forward_ad.lift`); the same values
+    params = forward_ad.lift(params, xy)
     k1, k2, p1, p2 = params[..., 0], params[..., 1], params[..., 2], params[..., 3]
     x, y = xy[..., 0], xy[..., 1]
     r2 = x * x + y * y
-    radial = 1.0 + k1 * r2 + k2 * r2 * r2
-    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
-    yd = y * radial + 2.0 * p2 * x * y + p1 * (r2 + 2.0 * y * y)
+    radial = forward_ad.lift(1.0, xy) + k1 * r2 + k2 * r2 * r2
+    xd = x * radial + (p1 + p1) * x * y + p2 * (r2 + (x + x) * x)
+    yd = y * radial + (p2 + p2) * x * y + p1 * (r2 + (y + y) * y)
     return torch.stack([xd, yd], dim=-1)
 
 

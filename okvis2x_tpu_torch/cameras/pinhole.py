@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from okvis2x_tpu_torch.cameras import distortion as dist
+from okvis2x_tpu_torch.utils import forward_ad
 
 EUCM = "eucm"
 
@@ -85,7 +86,7 @@ def _eucm_back_project_normalized(dist_params, m):
 
 def project(cam: Camera, p_C: torch.Tensor):
     """Project camera-frame points (..., 3) to pixels (..., 2), with validity."""
-    fx, fy, cx, cy = cam.fxfycxcy.unbind(-1)
+    fx, fy, cx, cy = forward_ad.lift(cam.fxfycxcy, p_C).unbind(-1)
     if cam.model == EUCM:
         m, z_ok = _eucm_project_normalized(cam.dist_params, p_C)
     else:

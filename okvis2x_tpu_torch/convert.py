@@ -91,14 +91,25 @@ def preintegrated(pre, dtype=torch.float64, device=None) -> Preintegrated:
                            for k in Preintegrated._fields])
 
 
-def submap_config(cfg) -> submap.SubmapConfig:
-    """JAX dense `SubmapConfig` -> the port's (same fields)."""
+def submap_config(cfg):
+    """JAX `SubmapConfig` or brick-sparse `BrickConfig` -> the port's (same
+    fields)."""
+    if hasattr(cfg, "table_dim"):
+        from okvis2x_tpu_torch.mapping import brick
+
+        return brick.BrickConfig(**cfg._asdict())
     return submap.SubmapConfig(**cfg._asdict())
 
 
-def submap_grid(sm, device=None) -> submap.Submap:
-    """JAX dense `Submap` -> the port's, each array keeping its dtype."""
-    return submap.Submap(*[torch.as_tensor(np.array(x), device=device) for x in sm])
+def submap_grid(sm, device=None):
+    """JAX dense `Submap` or `BrickSubmap` -> the port's, each array keeping
+    its dtype (the brick table, slot coordinates and count int32)."""
+    cls = submap.Submap
+    if hasattr(sm, "table"):
+        from okvis2x_tpu_torch.mapping import brick
+
+        cls = brick.BrickSubmap
+    return cls(*[torch.as_tensor(np.array(x), device=device) for x in sm])
 
 
 def ba_problem(p, dtype=torch.float64, device=None) -> BAProblem:

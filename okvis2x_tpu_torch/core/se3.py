@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from okvis2x_tpu_torch.utils.forward_ad import lift
+
 
 def quat_identity(dtype=torch.float64, device=None) -> torch.Tensor:
     return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
@@ -57,7 +59,7 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vector(s) v by quaternion q: C(q) v (Rodrigues form)."""
     qv = q[..., :3]
     qw = q[..., 3:4]
-    t = 2.0 * cross(qv, v)
+    t = lift(2.0, q) * cross(qv, v)
     return v + qw * t + cross(qv, t)
 
 
@@ -112,14 +114,15 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
 def delta_q(dalpha: torch.Tensor) -> torch.Tensor:
     """Exact exponential of a small rotation vector as a quaternion:
     q = [sinc(|a|/2) * a/2, cos(|a|/2)] with a Taylor-safe sinc."""
-    half = 0.5 * dalpha
+    one = lift(1.0, dalpha)
+    half = lift(0.5, dalpha) * dalpha
     theta2 = torch.sum(half * half, dim=-1, keepdim=True)
     theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
     small = theta2 < 1e-12
-    sinc = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    sinc = torch.where(small, one - theta2 / lift(6.0, dalpha), torch.sin(theta) / theta)
     # kept (..., 1): forward AD promotes the tangent of a 0-dim float32
     # `where` to float64
-    cos = torch.where(small, 1.0 - theta2 / 2.0, torch.cos(theta))
+    cos = torch.where(small, one - theta2 / lift(2.0, dalpha), torch.cos(theta))
     return torch.cat([sinc * half, cos], dim=-1)
 
 
@@ -127,15 +130,16 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     """Rotation vector of a unit quaternion (inverse of delta_q)."""
     qv = q[..., :3]
     qw = q[..., 3]
-    sign = torch.where(qw < 0, -1.0, 1.0).to(q.dtype)
+    sign = lift(torch.where(qw < 0, -1.0, 1.0).to(q.dtype), q)
     qv = qv * sign[..., None]
     qw = qw * sign
     n = torch.linalg.norm(qv, dim=-1)
-    angle = 2.0 * torch.atan2(n, qw)
+    two = lift(2.0, q)
+    angle = two * torch.atan2(n, qw)
     small = n < 1e-8
     scale = torch.where(
         small,
-        2.0 / torch.clamp(qw, min=1e-12),
+        two / torch.clamp(qw, min=1e-12),
         angle / torch.clamp(n, min=1e-24),
     )
     return qv * scale[..., None]
@@ -189,6 +193,7 @@ def se3_apply_homogeneous(T: torch.Tensor, hp: torch.Tensor) -> torch.Tensor:
 def retract(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """OKVIS boxplus: t += dt; q <- deltaQ(dalpha) * q.  Factors
     differentiate through this to get their minimal Jacobians."""
+    T = lift(T, delta)
     t = se3_t(T) + delta[..., :3]
     q = quat_normalize(quat_multiply(delta_q(delta[..., 3:6]), se3_q(T)))
     return torch.cat([t, q], dim=-1)
@@ -196,6 +201,7 @@ def retract(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 def local_delta(T_ref: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Inverse of `retract`: dt = t - t_ref; dalpha = log(q * q_ref^-1)."""
+    T_ref = lift(T_ref, T)
     dt = se3_t(T) - se3_t(T_ref)
     dq = quat_multiply(se3_q(T), quat_conjugate(se3_q(T_ref)))
     return torch.cat([dt, quat_log(dq)], dim=-1)

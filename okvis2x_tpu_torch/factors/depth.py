@@ -18,6 +18,7 @@ import torch
 from torch.func import jacfwd
 
 from okvis2x_tpu_torch.core import se3
+from okvis2x_tpu_torch.utils.forward_ad import lift
 
 
 def predicted_depth(T_WS, T_SC, hp_W):
@@ -45,10 +46,10 @@ def residual(T_WS, T_SC, hp_W, d_meas, sqrt_info, onesided: bool):
 def residual_on_manifold(T_WS, T_SC, hp_W, d_meas, sqrt_info, dpose, dl, dext):
     """The ungated residual at the minimal increments (dpose 6, dl 3 on the
     xyz part of hp_W, dext 6): the function the solver differentiates at 0."""
-    hp = torch.cat([hp_W[..., :3] + dl, hp_W[..., 3:]], dim=-1)
+    hp = torch.cat([lift(hp_W[..., :3], dl) + dl, hp_W[..., 3:]], dim=-1)
     p_z, _ = _gate(*predicted_depth(se3.retract(T_WS, dpose), se3.retract(T_SC, dext), hp),
                    d_meas, False)
-    return sqrt_info * (d_meas - p_z)
+    return lift(sqrt_info, p_z) * (lift(d_meas, p_z) - p_z)
 
 
 def linearize(T_WS, T_SC, hp_W, d_meas, sqrt_info, onesided: bool):

@@ -15,6 +15,7 @@ from torch.func import jacfwd
 
 from okvis2x_tpu_torch.cameras import pinhole
 from okvis2x_tpu_torch.core import se3
+from okvis2x_tpu_torch.utils.forward_ad import lift
 
 
 def residual(cam: pinhole.Camera, T_WS, T_SC, hp_W, uv_meas, sqrt_info):
@@ -23,7 +24,7 @@ def residual(cam: pinhole.Camera, T_WS, T_SC, hp_W, uv_meas, sqrt_info):
     T_CW = se3.se3_multiply(se3.se3_inverse(T_SC), se3.se3_inverse(T_WS))
     hp_C = se3.se3_apply_homogeneous(T_CW, hp_W)
     uv, valid = pinhole.project_homogeneous(cam, hp_C)
-    r = (uv_meas - uv) * sqrt_info[..., None]
+    r = (lift(uv_meas, uv) - uv) * lift(sqrt_info, uv)[..., None]
     r = torch.where(valid[..., None], r, torch.zeros_like(r))
     return r, valid
 
@@ -32,7 +33,7 @@ def residual_on_manifold(cam, T_WS, T_SC, hp_W, uv_meas, sqrt_info, dpose, dhp, 
     """Residual as a function of minimal increments (for jacfwd at 0)."""
     T_WS_p = se3.retract(T_WS, dpose)
     T_SC_p = se3.retract(T_SC, dext)
-    hp_p = torch.cat([hp_W[..., :3] + dhp, hp_W[..., 3:]], dim=-1)
+    hp_p = torch.cat([lift(hp_W[..., :3], dhp) + dhp, hp_W[..., 3:]], dim=-1)
     return residual(cam, T_WS_p, T_SC_p, hp_p, uv_meas, sqrt_info)
 
 

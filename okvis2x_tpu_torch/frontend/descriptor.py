@@ -12,6 +12,13 @@ that rounds the row weights and the intensities to bf16 before the products.
 The rounding changes which bits come out, so it is reproduced here exactly:
 each row value is the float32 sum of two bf16 x bf16 products (exact in
 float32), and the column interpolation is two float32 products and one sum.
+
+The sample positions are reproduced bit for bit too, since an ulp there can
+flip a bf16-rounded weight: the extraction direction's cosine and sine are
+those of the C library's ``cosf`` / ``sinf`` that XLA calls on the CPU
+(`sincosf`, evaluated in float64 with its constants), and the rotation of the
+pattern is XLA's dot over two columns, the first product rounded and the
+second fused into it (one multiply-add, emulated in float64).
 """
 
 from __future__ import annotations
@@ -63,6 +70,48 @@ def pattern(device):
     return _ON_DEVICE[device]
 
 
+# glibc's sinf / cosf (sysdeps/ieee754/flt-32: s_sinf.c, s_cosf.c and the
+# __sincosf_table of s_sincosf_data.c), which XLA's CPU code calls
+_COS_POLY = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5", "-0x1.6c087e89a359dp-10",
+    "0x1.99343027bf8c3p-16"))
+_SIN_POLY = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"))
+_HPI_INV_2P24 = float.fromhex("0x1.45F306DC9C883p+23")  # 2 / pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")
+_EXP_PIO4 = 0x3F4  # the top 12 bits (sign cleared) of float32 pi / 4
+_EXP_2M12 = 0x39800000 >> 20  # ... and of 2^-12
+
+
+def sincosf(angle: torch.Tensor):
+    """(sin, cos) of float32 angles as the C library's sinf and cosf give
+    them for |angle| < 120 (the fast range reduction): the polynomials in
+    float64 on the angle reduced to [-pi/4, pi/4], rounded once to float32;
+    below 2^-12 sin is the angle and cos is 1."""
+    y = angle.to(torch.float32)
+    top = (y.view(torch.int32) >> 20) & 0x7FF
+    small, tiny = top < _EXP_PIO4, top < _EXP_2M12
+    x = y.to(torch.float64)
+    n = ((x * _HPI_INV_2P24).to(torch.int32) + 0x800000) >> 24
+    n = torch.where(small, torch.zeros_like(n), n)
+    xr = torch.where(small, x, x - n.to(torch.float64) * _HPI)
+    # the second table negates the cosine polynomial (quadrants 2 and 3)
+    cs = torch.where((n & 2) != 0, -1.0, 1.0).to(torch.float64)
+    sign = torch.where(((n + 1) & 2) != 0, -1.0, 1.0).to(torch.float64)  # 1, -1, -1, 1
+    xs = torch.where(small, xr, xr * sign)
+    x2 = xr * xr
+    x3 = xs * x2
+    sin_p = (xs + x3 * _SIN_POLY[0]) + (x3 * x2) * (_SIN_POLY[1] + x2 * _SIN_POLY[2])
+    c = _COS_POLY
+    x4 = x2 * x2
+    cos_p = ((cs * c[0] + x2 * (cs * c[1])) + x4 * (cs * c[2])) \
+        + (x4 * x2) * (cs * c[3] + x2 * (cs * c[4]))
+    odd = (n & 1) == 1
+    s = torch.where(odd, cos_p, sin_p).to(torch.float32)
+    co = torch.where(odd, sin_p, cos_p).to(torch.float32)
+    return torch.where(tiny, y, s), torch.where(tiny, torch.ones_like(y), co)
+
+
 def _bilinear_bf16(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Bilinear samples of img (H, W) at xy (..., 2) with the bf16 rounding
     of the row weights and intensities described in the module docstring."""
@@ -93,13 +142,19 @@ def extract(
     """(N, 12) int32 packed descriptors; invalid keypoints get zero bits."""
     dev = img.device
     img = gauss5(img.to(torch.float32))
-    ang = angle.to(torch.float32)
-    ca, sa = torch.cos(ang), torch.sin(ang)
+    sa, ca = sincosf(angle)
     pts, pa, pb = pattern(dev)
     scale = (1.0 + level.to(torch.float32))[:, None]
     px, py = pts[None, :, 0], pts[None, :, 1]
-    off_x = (ca[:, None] * px + (-sa)[:, None] * py) * scale
-    off_y = (sa[:, None] * px + ca[:, None] * py) * scale
+    # x = fma(-sin, py, cos * px), y = fma(cos, py, sin * px): the float32
+    # products of two float32 values are exact in float64, so one rounding of
+    # the float64 sum is the fused multiply-add (but for a double rounding
+    # within 2^-50 of a float32 midpoint)
+    py64 = py.to(torch.float64)
+    off_x = ((-sa).to(torch.float64)[:, None] * py64
+             + (ca[:, None] * px).to(torch.float64)).to(torch.float32) * scale
+    off_y = (ca.to(torch.float64)[:, None] * py64
+             + (sa[:, None] * px).to(torch.float64)).to(torch.float32) * scale
     sample_xy = uv.to(torch.float32)[:, None, :] + torch.stack([off_x, off_y], dim=-1)
     vals = _bilinear_bf16(img, sample_xy)  # (N, 60)
     bits = (vals[:, pa] > vals[:, pb]) & valid[:, None]

@@ -363,7 +363,7 @@ def generate(
     arguments (PNGs that decode to the same pixels)."""
     if world != "dots" or with_classmap:
         raise NotImplementedError("the textured world and its class maps are not ported yet "
-                                  "(the segmentation item, A4 in ROADMAP.md)")
+                                  "(the segmentation item, A5 in ROADMAP.md)")
     sc = _Scene(duration, frame_rate, imu_rate, width, height, baseline, imu_noise, n_points,
                 seed, trajectory, fx, density, scene_version, traj_kwargs)
     root = os.path.join(out_dir, "mav0")

@@ -15,8 +15,9 @@ The grid holds float32.  The ray geometry runs in the camera's dtype (the
 app's cameras are float64), with float32 inputs (depth, T_KC) promoted, as
 the JAX package's does under x64; the updates are float32.
 
-The brick-sparse grid of fine resolutions is not ported (ROADMAP.md, A5): a
-`BrickConfig`-like config raises ``NotImplementedError``.
+Fine resolutions use the brick-sparse grid of ``mapping/brick.py``: the
+functions below take either config (a `BrickConfig` has a `table_dim`) and
+dispatch on it, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -48,15 +49,21 @@ class Submap(NamedTuple):
     weight: torch.Tensor  # (D, D, D) integration counts
 
 
-def check_dense(cfg):
-    """Refuse a brick-sparse grid config."""
-    if hasattr(cfg, "table_dim"):
-        raise NotImplementedError("the brick-sparse submap grid is not ported yet "
-                                  "(ROADMAP.md, A5)")
+def is_brick(cfg) -> bool:
+    return hasattr(cfg, "table_dim")
 
 
-def new_submap(T_WK, cfg: SubmapConfig, dtype=torch.float32, device=None) -> Submap:
-    check_dense(cfg)
+def _brick():
+    from okvis2x_tpu_torch.mapping import brick
+
+    return brick
+
+
+def new_submap(T_WK, cfg, dtype=torch.float32, device=None):
+    """A submap of the grid config: dense `SubmapConfig`, or brick-sparse
+    `mapping.brick.BrickConfig`."""
+    if is_brick(cfg):
+        return _brick().new_submap(T_WK, cfg, dtype, device)
     D = cfg.dim
     return Submap(T_WK=torch.as_tensor(T_WK, dtype=dtype, device=device).clone(),
                   logodds=torch.zeros((D, D, D), dtype=dtype, device=device),
@@ -113,11 +120,12 @@ def _ray_samples(cfg: SubmapConfig, origin_K, end_K, valid, sigma, dtype):
     return pts, upd, ok
 
 
-def integrate_rays(sm: Submap, cfg: SubmapConfig, origin_K: torch.Tensor, end_K: torch.Tensor,
-                   valid: torch.Tensor, sigma=0.1) -> Submap:
+def integrate_rays(sm, cfg, origin_K: torch.Tensor, end_K: torch.Tensor, valid: torch.Tensor,
+                   sigma=0.1):
     """Batch ray integration, nearest-voxel: each voxel moves by the mean
     of this batch's updates in it, then clipped; `weight` counts them."""
-    check_dense(cfg)
+    if is_brick(cfg):
+        return _brick().integrate_rays(sm, cfg, origin_K, end_K, valid, sigma)
     pts, upd, ok = _ray_samples(cfg, origin_K, end_K, valid, sigma, sm.logodds.dtype)
     vi, inb = _nearest(cfg, pts)
     ok = (inb & ok).reshape(-1)
@@ -153,9 +161,8 @@ def depth_rays(cam: pinhole.Camera, T_KC: torch.Tensor, depth: torch.Tensor, str
     return se3.se3_t(T_KC), se3.se3_apply(T_KC, p_C), valid
 
 
-def integrate_depth_image(sm: Submap, cfg: SubmapConfig, cam: pinhole.Camera, T_KC: torch.Tensor,
-                          depth: torch.Tensor, sigma: torch.Tensor, stride: int = 4,
-                          max_depth: float = 20.0) -> Submap:
+def integrate_depth_image(sm, cfg, cam: pinhole.Camera, T_KC: torch.Tensor, depth: torch.Tensor,
+                          sigma: torch.Tensor, stride: int = 4, max_depth: float = 20.0):
     """Back-project a strided pixel grid of a metric depth image (0 / inf
     invalid) taken at camera pose T_KC and integrate its rays, sigma-aware."""
     origin, p_K, valid = depth_rays(cam, T_KC, depth, stride, max_depth)
@@ -177,11 +184,9 @@ def _corners(cfg: SubmapConfig, sm: Submap, p_K: torch.Tensor):
     return g, f, ok
 
 
-def interp_occupancy(sm: Submap, cfg: SubmapConfig, p_K: torch.Tensor):
-    """Trilinear log-odds at (..., 3) submap-frame points: (value, inside);
-    0 outside the grid."""
-    check_dense(cfg)
-    g, f, ok = _corners(cfg, sm, p_K)
+def _trilinear(g, f, ok):
+    """The trilinear value of corners g[dx][dy][dz] at fractions f (..., 3),
+    0 where not ok."""
     fx, fy, fz = f.unbind(-1)
     c00 = g[0][0][0] * (1 - fx) + g[1][0][0] * fx
     c10 = g[0][1][0] * (1 - fx) + g[1][1][0] * fx
@@ -193,11 +198,9 @@ def interp_occupancy(sm: Submap, cfg: SubmapConfig, p_K: torch.Tensor):
     return torch.where(ok, val, torch.zeros_like(val)), ok
 
 
-def grad_occupancy(sm: Submap, cfg: SubmapConfig, p_K: torch.Tensor):
-    """Gradient of the trilinear field with respect to the metric position
-    (..., 3): (gradient, inside); 0 outside the grid."""
-    check_dense(cfg)
-    g, f, ok = _corners(cfg, sm, p_K)
+def _trilinear_grad(g, f, ok, res: float):
+    """The gradient of the trilinear field of corners g in metres (voxels
+    of `res`), 0 where not ok."""
     fx, fy, fz = f.unbind(-1)
     dx = ((g[1][0][0] - g[0][0][0]) * (1 - fy) * (1 - fz)
           + (g[1][1][0] - g[0][1][0]) * fy * (1 - fz)
@@ -211,22 +214,39 @@ def grad_occupancy(sm: Submap, cfg: SubmapConfig, p_K: torch.Tensor):
           + (g[1][0][1] - g[1][0][0]) * fx * (1 - fy)
           + (g[0][1][1] - g[0][1][0]) * (1 - fx) * fy
           + (g[1][1][1] - g[1][1][0]) * fx * fy)
-    grad = torch.stack([dx, dy, dz], dim=-1) / cfg.res
+    grad = torch.stack([dx, dy, dz], dim=-1) / res
     return torch.where(ok[..., None], grad, torch.zeros_like(grad)), ok
 
 
-def observed_mask(sm: Submap, cfg: SubmapConfig, p_K: torch.Tensor) -> torch.Tensor:
+def interp_occupancy(sm, cfg, p_K: torch.Tensor):
+    """Trilinear log-odds at (..., 3) submap-frame points: (value, inside);
+    0 outside the grid."""
+    if is_brick(cfg):
+        return _brick().interp_occupancy(sm, cfg, p_K)
+    return _trilinear(*_corners(cfg, sm, p_K))
+
+
+def grad_occupancy(sm, cfg, p_K: torch.Tensor):
+    """Gradient of the trilinear field with respect to the metric position
+    (..., 3): (gradient, inside); 0 outside the grid."""
+    if is_brick(cfg):
+        return _brick().grad_occupancy(sm, cfg, p_K)
+    return _trilinear_grad(*_corners(cfg, sm, p_K), cfg.res)
+
+
+def observed_mask(sm, cfg, p_K: torch.Tensor) -> torch.Tensor:
     """(...) bool: the point lands in a voxel with integration weight > 0."""
-    check_dense(cfg)
+    if is_brick(cfg):
+        return _brick().observed_mask(sm, cfg, p_K)
     vi, ok = _nearest(cfg, p_K)
     return (sm.weight[vi[..., 0], vi[..., 1], vi[..., 2]] > 0) & ok
 
 
-def occupied_point_list(sm: Submap, cfg: SubmapConfig, threshold: float = 1.0,
-                        max_points: int = 4096):
+def occupied_point_list(sm, cfg, threshold: float = 1.0, max_points: int = 4096):
     """The first `max_points` occupied voxel centres (submap frame, flat
     index order), zero-padded: ((max_points, 3), valid (max_points,))."""
-    check_dense(cfg)
+    if is_brick(cfg):
+        return _brick().occupied_point_list(sm, cfg, threshold, max_points)
     occ = (sm.logodds > threshold).reshape(-1)
     idx = torch.nonzero(occ)[:max_points, 0]
     n = idx.shape[0]
@@ -240,8 +260,7 @@ def occupied_point_list(sm: Submap, cfg: SubmapConfig, threshold: float = 1.0,
 
 def occupied_points(sm: Submap, cfg: SubmapConfig, threshold: float = 1.0):
     """All voxel centres (D^3, 3) in the submap frame and the occupied mask
-    (D^3,)."""
-    check_dense(cfg)
+    (D^3,) of a dense grid."""
     D = cfg.dim
     idx = torch.arange(D, device=sm.logodds.device)
     g = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), dim=-1).reshape(-1, 3)

@@ -44,6 +44,8 @@ DESC_BITS = 32 * WORDS
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SRCS = (_CSRC / "hamming.cu", _CSRC / "hamming_match.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "okvis2x_tpu_torch"
+# one lock for every native build of the port (these kernels, the mesh library)
+BUILD_LOCK = threading.Lock()
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--threads", "2",
@@ -56,7 +58,7 @@ class _Kernel:
     def __init__(self):
         self.lib = None
         self.build_log = ""
-        self._lock = threading.Lock()
+        self._lock = BUILD_LOCK
 
     def load(self):
         if self.lib is not None:

@@ -1,8 +1,7 @@
 """Submapping: the life cycle of keyframe-anchored occupancy submaps, the
 integration of depth images and LiDAR sweeps into them, and map-to-map
-alignment edges (torch counterpart of ``okvis2x_tpu/pipeline/submapping.py``
-without its brick-sparse grid and mesh and VTK exports; the reference's
-SubmappingInterface).
+alignment edges (torch counterpart of ``okvis2x_tpu/pipeline/submapping.py``;
+the reference's SubmappingInterface).
 
 A keyframe's depth image or a sweep goes into the active submap, or starts a
 new one when there is none, or when the active one has integrated enough
@@ -13,12 +12,12 @@ alignment edge between the previous submap's anchor and its own to the
 `align_callback`: its occupied voxels registered against the previous
 submap's field, summarised as a relative-pose edge.  Submaps are re-anchored
 when their anchor keyframe moves (`on_state_update`) and export their
-occupied voxels as a PLY point cloud, coloured where colour was splatted.
-The grids live on the interface's device; pose bookkeeping runs on the host
-with float32 anchors, as in the JAX package.
-
-Not ported yet (ROADMAP.md, A5): mesh and VTK export, the brick-sparse grid
-of fine resolutions.
+occupied voxels as a PLY point cloud, coloured where colour was splatted, a
+submap's marching-tetrahedra mesh as a PLY mesh (`export_mesh_ply`, dense
+grids) and their bounding boxes as legacy VTK (`export_vtk_bboxes`).
+The grids live on the interface's device, dense up to 256^3 and brick-sparse
+beyond (`SubmappingConfig.from_se2`); pose bookkeeping runs on the host with
+float32 anchors, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,12 +35,11 @@ from okvis2x_tpu_torch.mapping import colour as col_mod
 from okvis2x_tpu_torch.mapping import icp_factor
 from okvis2x_tpu_torch.mapping import submap as sm_mod
 
-_A5 = "not ported yet (ROADMAP.md, A5)"
-
 
 @dataclasses.dataclass
 class SubmappingConfig:
-    submap: sm_mod.SubmapConfig = sm_mod.SubmapConfig()
+    # the grid: dense `SubmapConfig`, or brick-sparse `mapping.brick.BrickConfig`
+    submap: object = sm_mod.SubmapConfig()
     # the se2.yaml submap thresholds
     new_submap_overlap: float = 0.1
     new_submap_kf_count: int = 20
@@ -52,20 +50,26 @@ class SubmappingConfig:
     max_depth: float = 20.0
 
     @classmethod
-    def from_se2(cls, se2) -> "SubmappingConfig":
+    def from_se2(cls, se2, pool_bricks: int = 8192) -> "SubmappingConfig":
         """The runtime config of a parsed se2.yaml (`io.config.SubMapConfig`)
-        at its `map_res`: a dense grid up to 256 voxels a side; finer grids
-        need the brick-sparse representation, which is not ported."""
+        at its `map_res`: a dense grid up to 256 voxels a side, else the
+        brick-sparse grid of 8^3 bricks with `pool_bricks` slots and up to
+        192 free-space samples a ray; the band sampled at voxel pitch."""
         res = se2.map_res
         dim = int(round(max(se2.map_dim) / res))
-        if dim > 256:
-            raise NotImplementedError(
-                f"a {dim}^3 submap at {res} m needs the brick-sparse grid, {_A5}")
         band = 0.3
-        grid = sm_mod.SubmapConfig(
-            dim=dim, res=res, log_odd_min=se2.data.log_odd_min,
-            log_odd_max=se2.data.log_odd_max, surface_band=band,
-            band_samples=max(8, int(1.5 * band / res) + 1))
+        lo = dict(log_odd_min=se2.data.log_odd_min, log_odd_max=se2.data.log_odd_max,
+                  surface_band=band, band_samples=max(8, int(1.5 * band / res) + 1))
+        if dim <= 256:
+            grid = sm_mod.SubmapConfig(dim=dim, res=res, **lo)
+        else:
+            from okvis2x_tpu_torch.mapping import brick
+
+            b = 8
+            grid = brick.BrickConfig(table_dim=-(-dim // b), brick=b, res=res,
+                                     pool_bricks=pool_bricks,
+                                     samples_per_ray=max(48, min(192, int(0.75 * dim / 8))),
+                                     **lo)
         return cls(
             submap=grid,
             new_submap_overlap=se2.submap_overlap_ratio,
@@ -82,7 +86,7 @@ class SubmappingConfig:
 class SubmapEntry:
     sid: int
     anchor_fid: int  # the keyframe that anchors T_WK
-    sm: sm_mod.Submap
+    sm: object  # mapping.submap.Submap or mapping.brick.BrickSubmap
     n_frames: int = 0
     kf_ids: set = dataclasses.field(default_factory=set)
     finished: bool = False
@@ -100,7 +104,6 @@ class SubmappingInterface:
 
     def __init__(self, cfg: SubmappingConfig, align_callback: Optional[Callable] = None,
                  device=None):
-        sm_mod.check_dense(cfg.submap)
         self.align_callback = align_callback
         self.cfg = cfg
         self.device = default_device() if device is None else torch.device(device)
@@ -218,7 +221,8 @@ class SubmappingInterface:
                 a.col = col_mod.new_store(cfg.submap, device=dev)
             _, p_K, ok = sm_mod.depth_rays(cam, T_KC, depth, cfg.depth_stride, cfg.max_depth)
             s = cfg.depth_stride
-            a.col = col_mod.splat(a.col, cfg.submap, p_K, col[::s, ::s].reshape(-1, 3), ok)
+            a.col = col_mod.splat(a.col, cfg.submap, p_K, col[::s, ::s].reshape(-1, 3), ok,
+                                  sm=a.sm)
 
     def integrate_lidar(self, kf_fid: int, T_WK: np.ndarray, T_WS: np.ndarray, pts_S,
                         sigma: float = 0.1):
@@ -294,7 +298,7 @@ class SubmappingInterface:
             all_pts.append(se3.se3_apply(e.sm.T_WK, pts_K).cpu().numpy())
             if any_colour:
                 all_cols.append(
-                    col_mod.colour_at(e.col, self.cfg.submap, pts_K).cpu().numpy()
+                    col_mod.colour_at(e.col, self.cfg.submap, pts_K, sm=e.sm).cpu().numpy()
                     if e.col is not None else np.full((len(pts_K), 3), 0.5, np.float32))
         pts = np.concatenate(all_pts) if all_pts else np.zeros((0, 3), np.float32)
         cols = (np.clip(np.concatenate(all_cols) * 255, 0, 255).astype(np.uint8)
@@ -313,8 +317,48 @@ class SubmappingInterface:
                     f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}\n")
         return len(pts)
 
-    def export_mesh_ply(self, *args, **kwargs):
-        raise NotImplementedError(f"mesh export is {_A5}")
+    def export_mesh_ply(self, path: str, entry: SubmapEntry, iso: float = 0.0) -> int:
+        """Write the marching-tetrahedra mesh of one submap's log-odds at
+        `iso` (world frame) as an ASCII PLY mesh, with per-vertex RGB when
+        colour was splatted; returns the triangle count.  Dense grids only:
+        a brick grid has no dense log-odds to mesh (nor in the JAX package)."""
+        from okvis2x_tpu_torch.mapping import mesh
 
-    def export_vtk_bboxes(self, *args, **kwargs):
-        raise NotImplementedError(f"the VTK bounding-box export is {_A5}")
+        tris_K = mesh.submap_mesh(entry.sm, self.cfg.submap, iso)
+        if len(tris_K) == 0:
+            mesh.write_ply_mesh(path, tris_K)
+            return 0
+        verts_K = torch.as_tensor(tris_K.reshape(-1, 3), dtype=torch.float32, device=self.device)
+        cols = None
+        if entry.col is not None:
+            cols = col_mod.colour_at(entry.col, self.cfg.submap, verts_K, sm=entry.sm).cpu().numpy()
+        verts_W = se3.se3_apply(entry.sm.T_WK, verts_K).cpu().numpy()
+        mesh.write_ply_mesh(path, verts_W.reshape(-1, 3, 3), colours=cols)
+        return len(tris_K)
+
+    def export_vtk_bboxes(self, path: str) -> str:
+        """Write the submaps' bounding boxes as a legacy-VTK unstructured grid:
+        one hexahedron (cell type 12) a submap, its corners the grid's extent
+        centred on the anchor, in the world frame (float32 anchor, float64
+        corners, as the JAX package composes them); returns the path."""
+        D = float(self.cfg.submap.dim) * float(self.cfg.submap.res)
+        h = (-D / 2, D / 2)
+        local = torch.tensor([[dx, dy, dz] for dz in h for dy in h for dx in h],
+                             dtype=torch.float64)
+        pts = [se3.se3_apply(e.sm.T_WK.cpu().to(torch.float64), local).numpy() for e in self.maps]
+        with open(path, "w") as f:
+            f.write("# vtk DataFile Version 3.0\n")
+            f.write("okvis2x_tpu submap bounding boxes\nASCII\n")
+            f.write("DATASET UNSTRUCTURED_GRID\n")
+            f.write(f"POINTS {8 * len(pts)} float\n")
+            for box in pts:
+                for p in box:
+                    f.write(f"{p[0]} {p[1]} {p[2]}\n")
+            f.write(f"CELLS {len(pts)} {len(pts) * 9}\n")
+            for i in range(len(pts)):
+                o = 8 * i
+                f.write("8 " + " ".join(str(o + k) for k in (0, 1, 3, 2, 4, 5, 7, 6)) + "\n")
+            f.write(f"CELL_TYPES {len(pts)}\n")
+            for _ in pts:
+                f.write("12\n")
+        return path

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions,
 and the port's device code that has no kernel of its own (the depth nets,
-the occupancy grid, the submap-ICP rows, the LiDAR pipeline, the mapping
-modes of the app) on the card against the CPU.
+the occupancy grids, dense and brick-sparse, the submap-ICP rows, the LiDAR
+pipeline, the mapping modes of the app) on the card against the CPU.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device
 (all but the last, which checks what happens without one).
@@ -289,6 +289,46 @@ def test_cuda_occupancy_grid_matches_cpu(cuda):
     assert (a.logodds - b.logodds.cpu()).abs().max() < 1e-6
     assert torch.equal(a.logodds > 1.0, b.logodds.cpu() > 1.0) and bool((a.logodds > 1.0).any())
     assert (ia - ib).abs().max() < 1e-5 and (ca - cb).abs().max() < 1e-6
+
+
+def test_cuda_brick_grid_matches_cpu(cuda):
+    """One depth image integrated three times into the reference's 1024^3
+    brick-sparse grid (a 128^3 table, 8192 bricks) on the card against the
+    CPU: the table, the slots' brick coordinates, the allocated count and
+    the counts equal, log-odds within 1e-5; interpolation, the observed mask,
+    the occupied list and a colour splat through the table agree."""
+    from okvis2x_tpu_torch.cameras import pinhole
+    from okvis2x_tpu_torch.mapping import brick, colour, submap
+
+    cam = pinhole.make_pinhole(100.0, 100.0, 64.0, 48.0, 128, 96, model="none")
+    depth = 2.5 + 0.5 * textured(96, 128, 3)
+    sigma = 0.01 * depth * depth
+    T_KC = torch.tensor([0.1, -0.05, 0.02, 0.0, 0.0, 0.0499792, 0.9987503])
+    cfg = brick.BrickConfig(samples_per_ray=96, band_samples=18)
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        sm = submap.new_submap(np.r_[0, 0, 0, 0, 0, 0, 1.0], cfg, device=dev)
+        for _ in range(3):
+            sm = submap.integrate_depth_image(sm, cfg, cam.to(device=dev), T_KC.to(dev),
+                                              depth.to(dev), sigma.to(dev))
+        _, p_K, ok = submap.depth_rays(cam.to(device=dev), T_KC.to(dev), depth.to(dev), 4, 20.0)
+        st = colour.splat(colour.new_store(cfg, device=dev), cfg, p_K,
+                          torch.rand((p_K.shape[0], 3), generator=torch.Generator().manual_seed(2))
+                          .to(dev), ok, sm=sm)
+        q = p_K[:500]
+        occ, valid = submap.occupied_point_list(sm, cfg, 1.0, 4096)
+        out[dev] = ([x.cpu() for x in sm], submap.interp_occupancy(sm, cfg, q)[0].cpu(),
+                    submap.observed_mask(sm, cfg, q).cpu(), occ.cpu(), valid.cpu(),
+                    colour.colour_at(st, cfg, q, sm=sm).cpu())
+    (a, ia, oa, pa, va, ca), (b, ib, ob, pb, vb, cb) = out["cpu"], out["cuda:0"]
+    a, b = brick.BrickSubmap(*a), brick.BrickSubmap(*b)
+    for k in ("table", "brick_xyz", "n_alloc", "pool_w"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert 0 < int(a.n_alloc) < cfg.pool_bricks
+    assert (a.pool_lo - b.pool_lo).abs().max() < 1e-5
+    assert (ia - ib).abs().max() < 1e-5 and torch.equal(oa, ob) and bool(oa.any())
+    assert torch.equal(va, vb) and bool(va.any()) and torch.equal(pa[va], pb[vb])
+    assert (ca - cb).abs().max() < 1e-6
 
 
 def icp_problem(device, Q=64):

@@ -29,7 +29,8 @@ from okvis2x_tpu_torch.io import trajectory_io
 from okvis2x_tpu_torch.pipeline.vio import VioPipeline
 from test_torch_async_slice import StepQueue
 from test_torch_deferred import drain_waiting
-from test_torch_lc_slice import EST, cameras, jax_sample_indices, pin_to_cores, render
+from test_torch_lc_slice import (EST, cameras, jax_sample_indices, pin_to_cores, render,
+                                 run_cache_dir, use_compile_cache)
 
 torch.set_num_threads(1)
 
@@ -72,7 +73,7 @@ def _run(pipe, seq):
                 full_graph=counts)
 
 
-def jax_run():
+def jax_run(cache_dir=None):
     """The JAX pipeline's lockstep run, in a process of its own, on two
     cores."""
     import jax
@@ -80,6 +81,7 @@ def jax_run():
     pin_to_cores(2)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
+    use_compile_cache(cache_dir)
     queue.Queue = StepQueue
     seq = render()
     pipe = JVioPipeline(cameras(seq, jpin), seq.T_SC, EstimatorConfig(**EST),
@@ -88,13 +90,13 @@ def jax_run():
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     seq = render()
     est_cfg = convert.estimator_config(EstimatorConfig(**EST))
     pipe_cfg = convert.pipeline_config(PipelineConfig(**PIPE))
     ctx = multiprocessing.get_context("spawn")
     with pytest.MonkeyPatch.context() as mp, ProcessPoolExecutor(1, mp_context=ctx) as pool:
-        ref = pool.submit(jax_run)
+        ref = pool.submit(jax_run, run_cache_dir(tmp_path_factory))
         mp.setattr(ransac, "sample_indices", jax_sample_indices)
         mp.setattr(queue, "Queue", StepQueue)
         got = _run(VioPipeline(cameras(seq, pinhole), seq.T_SC, est_cfg, pipe_cfg,

@@ -431,8 +431,10 @@ def test_deferred_frontend_attaches_depth(lockstep):
 def jax_app_rehearsal(mode, n_frames, root):
     """The JAX app in `mode` (rgbd or depth) on `chip_smoke.depth_dataset`'s
     dataset of `n_frames` frames (written by the port's generator, whose files
-    are the JAX package's), recorded as the chip phase records the port's
-    app; returns `chip_smoke.depth_metrics` and the wall time."""
+    are the JAX package's), or (fine) on the first `n_frames` of the depth
+    mode's dataset under `chip_smoke.FINE_SE2`, recorded as the chip phase
+    records the port's app; returns `chip_smoke.depth_metrics` and the wall
+    time, and for fine also `chip_smoke.export_stats` at log-odds 0."""
     import runpy
     import time
 
@@ -440,8 +442,13 @@ def jax_app_rehearsal(mode, n_frames, root):
 
     import chip_smoke
 
-    ds_dir, app_argv = chip_smoke.depth_dataset(root, mode, n_frames)
-    out = os.path.join(root, "out")
+    if mode == "fine":  # the first n_frames of the depth phase's dataset at 0.025 m
+        ds_dir, _ = chip_smoke.depth_dataset(root, "depth", chip_smoke.DEPTH_FRAMES)
+        app_argv = chip_smoke.fine_args(ds_dir, os.path.join(root, "fine"), n_frames)
+        out = os.path.join(root, "fine", "out")
+    else:
+        ds_dir, app_argv = chip_smoke.depth_dataset(root, mode, n_frames)
+        out = os.path.join(root, "out")
     argv = sys.argv
     sys.argv = ["okvis2x_app.py", *app_argv]
     t0 = time.perf_counter()
@@ -452,6 +459,9 @@ def jax_app_rehearsal(mode, n_frames, root):
         sys.argv = argv
     m = chip_smoke.depth_metrics(rec, ds_dir, out)
     m["wall_s"] = time.perf_counter() - t0
+    if mode == "fine":
+        m.update(chip_smoke.export_stats(rec.submapping, os.path.join(out, "map_evidence.ply"),
+                                         chip_smoke.FINE_EXPORT_THRESHOLD))
     return m
 
 

@@ -473,7 +473,7 @@ def test_generate_writes_what_jax_writes(jax_dataset, tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(world="textured"), dict(with_classmap=True)])
 def test_generate_refuses_unported_worlds(kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="A5"):
         synthetic.generate(str(tmp_path / "x"), duration=0.5, width=32, height=24, **kw)
 
 

@@ -80,6 +80,29 @@ def pin_to_cores(slot: int, n: int = 2):
         os.sched_setaffinity(int(tid), pick)
 
 
+def run_cache_dir(tmp_path_factory):
+    """The persistent compile cache of this test run's spawned JAX
+    processes: a directory under the run's base temporary directory (the
+    xdist workers' own lie in it), so that it starts cold with every run
+    and the references and apps spawned within one run compile each XLA
+    program once between them."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    path = base / "jax_cache"
+    path.mkdir(exist_ok=True)
+    return str(path)
+
+
+def use_compile_cache(cache_dir):
+    """Give this spawned reference the run's persistent compile cache
+    `cache_dir` (`run_cache_dir`), with tests/conftest.py's thresholds."""
+    if cache_dir:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+
+
 def _run(pipe, seq):
     closures = []
     for kind, data in seq.events():
@@ -109,20 +132,21 @@ def cameras(seq, pinhole_module):
     return [cam, cam]
 
 
-def jax_run():
+def jax_run(cache_dir=None):
     """The JAX pipeline's run, in a process of its own (a fresh interpreter:
-    the CPU platform and float64 are set here, as tests/conftest.py sets
-    them for the test process), on two cores."""
+    the CPU platform, float64 and the compile cache `cache_dir` are set here,
+    as tests/conftest.py sets them for the test process), on two cores."""
     pin_to_cores(0)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
+    use_compile_cache(cache_dir)
     seq = render()
     return _run(JVioPipeline(cameras(seq, jpin), seq.T_SC, EstimatorConfig(**EST),
                              PipelineConfig(**PIPE)), seq)
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     """The slice with synchronous loop closure on, run by both packages at
     once: the JAX pipeline in a spawned process, the port in this one."""
     seq = render()
@@ -130,7 +154,7 @@ def runs():
     pipe_cfg = convert.pipeline_config(PipelineConfig(**PIPE))
     ctx = multiprocessing.get_context("spawn")
     with pytest.MonkeyPatch.context() as mp, ProcessPoolExecutor(1, mp_context=ctx) as pool:
-        ref = pool.submit(jax_run)
+        ref = pool.submit(jax_run, run_cache_dir(tmp_path_factory))
         mp.setattr(ransac, "sample_indices", jax_sample_indices)
         got = _run(VioPipeline(cameras(seq, pinhole), seq.T_SC, est_cfg, pipe_cfg,
                                device="cpu"), seq)

@@ -28,7 +28,7 @@ import chip_smoke  # noqa: E402
 from okvis2x_tpu.io import synthetic as jsyn  # noqa: E402
 from okvis2x_tpu_torch.apps import okvis2x_app  # noqa: E402
 from okvis2x_tpu_torch.io import trajectory_io  # noqa: E402
-from test_torch_app import read_ply, record_maps, write_config  # noqa: E402
+from test_torch_app import jax_app_env, read_ply, record_maps, write_config  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -81,7 +81,7 @@ def lidar_runs(tmp_path_factory):
            f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r}); "
            "import test_torch_lidar_app as t; "
            f"t.record_lidar('okvis2x_tpu', {args('jax')!r}, {outs['jax']!r})")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = jax_app_env(tmp_path_factory)
     with open(os.path.join(outs["jax"], "log.txt"), "w") as log:
         ref = subprocess.Popen([sys.executable, "-c", run], cwd=REPO, env=env, stdout=log,
                                stderr=subprocess.STDOUT)

@@ -2,8 +2,9 @@
 integration, interpolation, the observed mask, the occupied-voxel list and
 colour splatting on a 32^3 grid; the submapping interface's life cycle on
 both packages; the port's versions of the depth and colour cases of
-tests/test_submapping.py; and what the port refuses (ROADMAP.md, A5).  The
-LiDAR half (integration, alignment edges) is held in
+tests/test_submapping.py.  The brick-sparse grid is held in
+tests/test_torch_brick.py, the mesh and VTK exports in tests/test_torch_mesh.py.
+The LiDAR half (integration, alignment edges) is held in
 tests/test_torch_lidar.py.
 
 The JAX functions run jitted, as the JAX package's interface runs them (XLA
@@ -260,25 +261,6 @@ def test_colour_submap_integration(tmp_path):
     path = os.path.join(tmp_path, "col.ply")
     assert si.export_occupied_ply(path) > 50
     assert "property uchar red" in open(path).read(400)
-
-
-def test_unported_submapping_refuses(tmp_path):
-    """The brick-sparse grid, mesh and VTK export are not ported (A5) and
-    say so."""
-    _, cam = cams()
-    si = SubmappingInterface(CFG, device="cpu")
-    si.integrate_depth(0, I7, I7, cam, wall_depth(cam))
-    for call in (lambda: si.export_mesh_ply(str(tmp_path / "m.ply"), si.active),
-                 lambda: si.export_vtk_bboxes(str(tmp_path / "b.vtk"))):
-        with pytest.raises(NotImplementedError, match="A5"):
-            call()
-    from okvis2x_tpu.mapping import brick as jbrick
-
-    with pytest.raises(NotImplementedError, match="A5"):
-        submap.new_submap(I7, jbrick.BrickConfig())
-    se2 = config.SubMapConfig()  # 25.6 m at 0.025 m: a 1024^3 grid
-    with pytest.raises(NotImplementedError, match="A5"):
-        SubmappingConfig.from_se2(se2)
 
 
 def test_from_se2_dense_matches_jax():
