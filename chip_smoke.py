@@ -71,6 +71,21 @@
    and the fused kernel must have been launched from the association and the
    vocabulary descent; it prints the frame times, the peak memory and the
    launches by site;
+7b'. bag replay through the synchronous node: that dataset's events written
+   as a ROS1 bag (`Rosbag1Writer`: mono8 `sensor_msgs/Image` on
+   /cam0/image_raw and /cam1/image_raw, `sensor_msgs/Imu` on /imu0) and as a
+   ROS2 bag (`Rosbag2Writer`, sqlite3 and CDR) under build/bag_phase/, both
+   read back with every image and IMU sample equal to the dataset's bit for
+   bit; `okvis2x_tpu_torch.apps.okvis2x_node_synchronous.main` replays the
+   ROS1 bag with the config on the default device (cuda:0) under the node's
+   defaults (the config's cameras, 512 keypoints in 2 octaves, loop closures
+   with the place-recognition worker): a row a frame in
+   okvis2_trajectory.csv, a finite okvis2_final_trajectory.csv with a row an
+   estimator state, the online ATE at most 0.25 m and at most twice the JAX
+   node's on the same bag (floor 0.05 m, `JAX_NODE`), the fused kernel
+   launched 4 times a frame from the association; then the ROS2 bag's first
+   4 frames, whose online poses must lie within 1e-6 m of the ROS1 run's; it
+   prints the frame times, the peak memory and the launches by site;
 7c. GNSS and online calibration through the app: `generate` writes the first
    24 frames (1.2 s) of the flagship circuit (752x480, 20 Hz) with its 5 Hz
    gps0/ stream (a frame yawed 0.4 rad and moved (30, -12, 4) m from the
@@ -170,6 +185,7 @@ is a JSON object describing the kernels; the last line is
 non-zero without printing a result.
 """
 
+import contextlib
 import json
 import logging
 import multiprocessing
@@ -228,6 +244,18 @@ MS_POS_TOL_M, MS_ROT_TOL_RAD = 0.2, 0.05
 # exit: 1.7-3 s a frame on the card; 12 frames since the LiDAR phase came,
 # 20 before, to keep the script near its length before that phase)
 APP_FRAMES = 12
+# the bag-replay phase: the app phase's dataset as a ROS1 and a ROS2 bag on
+# these topics, replayed by the synchronous node; the ROS2 bag's first
+# BAG_ROS2_FRAMES frames are held to the ROS1 run's within BAG_ROS2_TOL_M
+BAG_CAM_TOPICS = ("/cam0/image_raw", "/cam1/image_raw")
+BAG_IMU_TOPIC = "/imu0"
+BAG_ROS2_FRAMES = 4
+BAG_ROS2_TOL_M = 1e-6
+# the JAX node on the same ROS1 bag on the CPU: `python tests/test_torch_node.py`
+JAX_NODE = dict(ate_online_m=0.0018682588888909919, ate_final_m=0.0007842064953928203,
+                n_frames=12, n_final=6)
+# the node's online and final ATE are also held within this of JAX_NODE's
+JAX_NODE_TOL_M = 1e-3
 # the GNSS phase: the first 24 frames (1.2 s; 30 until the LiDAR phase came, 40
 # until the RGB-D phase came) of the flagship circuit with a 5 Hz GNSS stream in
 # a frame yawed by 0.4 rad and moved by (30, -12, 4) m, as
@@ -1432,6 +1460,66 @@ estimator_parameters:
 """)
 
 
+def app_dataset(root):
+    """The app phase's dataset, written under `root`: APP_FRAMES frames of
+    the 0.8 m circuit at the EuRoC operating point in the EuRoC layout
+    (`generate`), and its okvis2.yaml-schema config.  Returns (dataset dir,
+    config path, the same frames from `render_sequence`)."""
+    import os
+
+    from okvis2x_tpu_torch.io import synthetic
+
+    ds_dir = os.path.join(root, "dataset")
+    kw = dict(duration=0.3 + APP_FRAMES / 20.0, frame_rate=20.0, imu_rate=200.0, width=752,
+              height=480, fx=460.0, density=22.0, seed=3, trajectory="circuit",
+              scene_version=2, traj_kwargs=SMALL_CIRCUIT)
+    synthetic.generate(ds_dir, **kw)
+    seq = synthetic.render_sequence(**kw)
+    cfg = os.path.join(root, "okvis2.yaml")
+    app_config(cfg, seq)
+    return ds_dir, cfg, seq
+
+
+@contextlib.contextmanager
+def timed_frames(dev):
+    """A context in which every `VioPipeline.process_frame` is timed to the
+    end of its device work.  Yields (wall, pipes): each frame's seconds and
+    the pipelines that ran, in order of their first frame.  Peak device
+    memory counts from its start (`peak_text`)."""
+    import torch
+    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
+
+    wall, pipes = [], []
+    process_frame = VioPipeline.process_frame
+
+    def timed(self, *args, **kwargs):
+        t = time.perf_counter()
+        info = process_frame(self, *args, **kwargs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall.append(time.perf_counter() - t)
+        if self not in pipes:
+            pipes.append(self)
+        return info
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    VioPipeline.process_frame = timed
+    try:
+        yield wall, pipes
+    finally:
+        VioPipeline.process_frame = process_frame
+
+
+def peak_text(dev):
+    """The peak allocated device memory since its last reset, for printing."""
+    import torch
+
+    if dev.type != "cuda":
+        return "not measured"
+    return f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB"
+
+
 def app_phase(dev, card):
     """The port's dataset app (`okvis2x_tpu_torch.apps.okvis2x_app.main`) in
     slam mode on an EuRoC-layout dataset that the port's `generate` writes
@@ -1442,25 +1530,17 @@ def app_phase(dev, card):
     import os
     import shutil
 
-    import torch
     from okvis2x_tpu_torch.apps import okvis2x_app
-    from okvis2x_tpu_torch.io import euroc, synthetic, trajectory_io
+    from okvis2x_tpu_torch.io import euroc, trajectory_io
     from okvis2x_tpu_torch.ops import hamming
-    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
     from okvis2x_tpu_torch.utils import timing
 
     what = "app"
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "app_phase")
     shutil.rmtree(root, ignore_errors=True)
-    ds_dir, out = os.path.join(root, "dataset"), os.path.join(root, "out")
-    kw = dict(duration=0.3 + APP_FRAMES / 20.0, frame_rate=20.0, imu_rate=200.0, width=752,
-              height=480, fx=460.0, density=22.0, seed=3, trajectory="circuit",
-              scene_version=2, traj_kwargs=SMALL_CIRCUIT)
+    out = os.path.join(root, "out")
     t0 = time.perf_counter()
-    synthetic.generate(ds_dir, **kw)
-    seq = synthetic.render_sequence(**kw)
-    cfg = os.path.join(root, "okvis2.yaml")
-    app_config(cfg, seq)
+    ds_dir, cfg, seq = app_dataset(root)
     ds = euroc.EurocDataset(ds_dir)
     if len(ds.frames) != APP_FRAMES:
         raise RuntimeError(f"{what}: the dataset has {len(ds.frames)} frames")
@@ -1481,36 +1561,17 @@ def app_phase(dev, card):
             n_imu += 1
     t_data = time.perf_counter() - t0
 
-    # time each frame to the end of its device work, and keep the pipeline
-    wall, pipes = [], []
-    process_frame = VioPipeline.process_frame
-
-    def timed(self, *args, **kwargs):
-        t = time.perf_counter()
-        info = process_frame(self, *args, **kwargs)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall.append(time.perf_counter() - t)
-        if not pipes:
-            pipes.append(self)
-        return info
-
     argv = ["--dataset", ds_dir, "--config", cfg, "--mode", "slam", "--output", out,
             "--max-frames", str(APP_FRAMES), "--imu-csv", os.path.join(out, "imu.csv"),
             "--tracks-csv", os.path.join(out, "tracks.csv")]
     if dev.type == "cpu":
         argv += ["--device", "cpu"]
-    else:
-        torch.cuda.reset_peak_memory_stats(dev)
-    VioPipeline.process_frame = timed
-    timing.reset()  # the stage times the app prints are its own
-    hamming.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
+    with timed_frames(dev) as (wall, pipes):
+        timing.reset()  # the stage times the app prints are its own
+        hamming.reset_launch_counts()
+        t0 = time.perf_counter()
         ate = okvis2x_app.main(argv)
-    finally:
-        VioPipeline.process_frame = process_frame
-    t_run = time.perf_counter() - t0
+        t_run = time.perf_counter() - t0
     sites = dict(hamming.hamming_match.site_launches)
     ERRORS.check(what)
     vio = pipes[0]
@@ -1535,8 +1596,7 @@ def app_phase(dev, card):
         raise RuntimeError(f"{what}: the fused kernel's launches by site {sites} lack the "
                            "association or the vocabulary descent")
     ms = np.asarray(wall) * 1e3
-    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB" if dev.type == "cuda"
-            else "not measured")
+    peak = peak_text(dev)
     print(f"{what}: dataset of {APP_FRAMES} frames (752x480 PNG, {n_imu} IMU samples before "
           f"the last frame) written, read back and checked in {t_data:.1f} s; "
           f"okvis2x_app --mode slam on {vio.device}: {t_run:.1f} s, online ATE {ate:.4f} m, "
@@ -1545,6 +1605,177 @@ def app_phase(dev, card):
           f"IMU CSV {imu_rows} rows, tracks CSV {track_rows} rows; fused match launches by "
           f"site {sites} ({card})")
     return sites
+
+
+def write_bags(ds_dir, root):
+    """The events of the EuRoC-layout dataset `ds_dir`, in `events()`'s
+    order, as a ROS1 bag (`Rosbag1Writer`) and a ROS2 bag (`Rosbag2Writer`)
+    under `root`: mono8 `sensor_msgs/Image` on BAG_CAM_TOPICS (the PNGs'
+    pixels) and `sensor_msgs/Imu` on BAG_IMU_TOPIC, stamped in integer
+    nanoseconds.  Returns (ROS1 path, ROS2 path, the messages written as
+    (topic, ns, image or (gyr, acc)))."""
+    import os
+
+    from okvis2x_tpu_torch.io import euroc, png, rosbag1, rosbag2
+
+    os.makedirs(root, exist_ok=True)
+    bag1, bag2 = os.path.join(root, "seq.bag"), os.path.join(root, "seq_ros2")
+    written = []
+    with rosbag1.Rosbag1Writer(bag1) as b1, rosbag2.Rosbag2Writer(bag2) as b2:
+        for kind, ev in euroc.EurocDataset(ds_dir).events():
+            if kind == "imu":
+                t, gyr, acc = ev
+                ns = int(round(t * 1e9))
+                b1.write(BAG_IMU_TOPIC, "sensor_msgs/Imu", ns, rosbag1.encode_imu(ns, gyr, acc))
+                b2.write(BAG_IMU_TOPIC, "sensor_msgs/msg/Imu", ns,
+                         rosbag2.encode_imu(ns, gyr, acc))
+                written.append((BAG_IMU_TOPIC, ns, (gyr, acc)))
+                continue
+            ns = int(round(ev.t * 1e9))
+            for topic, path in zip(BAG_CAM_TOPICS, ev.paths):
+                img = png.decode_image(path)
+                b1.write(topic, "sensor_msgs/Image", ns, rosbag1.encode_image(ns, img))
+                b2.write(topic, "sensor_msgs/msg/Image", ns, rosbag2.encode_image(ns, img))
+                written.append((topic, ns, img))
+    return bag1, bag2, written
+
+
+def check_bags(what, bag1, bag2, written):
+    """Both bags read back through the port's readers: every message on its
+    topic, with its stamp, and its image or IMU sample equal to what was
+    written, bit for bit."""
+    from okvis2x_tpu_torch.io import rosbag1, rosbag2
+
+    for reader, codec in ((rosbag1.Rosbag1Reader(bag1), rosbag1),
+                          (rosbag2.Rosbag2Reader(bag2), rosbag2)):
+        got = list(reader.messages())
+        if len(got) != len(written):
+            raise RuntimeError(f"{what}: {codec.__name__} read {len(got)} messages of "
+                               f"{len(written)}")
+        for msg, (topic, ns, data) in zip(got, written):
+            if msg.topic != topic or msg.t_ns != ns:
+                raise RuntimeError(f"{what}: {codec.__name__} read {msg.topic} at {msg.t_ns} "
+                                   f"where {topic} at {ns} was written")
+            if topic == BAG_IMU_TOPIC:
+                m = codec.decode_imu(msg.raw)
+                same = np.array_equal(m.gyr, data[0]) and np.array_equal(m.acc, data[1])
+            else:
+                m = codec.decode_image(msg.raw)
+                same = (m.encoding == "mono8" and m.data.dtype == data.dtype
+                        and np.array_equal(m.data, data))
+            if m.t_ns != ns or not same:
+                raise RuntimeError(f"{what}: {codec.__name__} decoded {topic} at {ns} unlike "
+                                   "what was written")
+
+
+def node_metrics(ds_dir, out):
+    """The synchronous node's trajectories in `out` against the ground truth
+    of the EuRoC-layout dataset `ds_dir`: the online and final ATE and the
+    rows of each file."""
+    import os
+
+    from okvis2x_tpu_torch.io import euroc, trajectory_io
+
+    gt = euroc.EurocDataset(ds_dir).ground_truth
+    ts, Ts = trajectory_io.read_tum(os.path.join(out, "okvis2_trajectory.csv"))
+    fts, fTs = trajectory_io.read_tum(os.path.join(out, "okvis2_final_trajectory.csv"))
+    return dict(
+        ate_online_m=float(trajectory_io.ate_rmse(ts, Ts[:, :3], gt[:, 0], gt[:, 1:4])),
+        ate_final_m=float(trajectory_io.ate_rmse(fts, fTs[:, :3], gt[:, 0], gt[:, 1:4])),
+        n_frames=len(ts), n_final=len(fts), final_finite=bool(np.isfinite(fTs).all()),
+    )
+
+
+def bag_phase(dev, card):
+    """The port's synchronous node (`okvis2x_tpu_torch.apps.
+    okvis2x_node_synchronous.main`) on the app phase's dataset and config
+    (build/app_phase/, written by `app_phase`) repacked as bags: both bags
+    read back bit for bit, the ROS1 bag replayed under the node's defaults
+    (the config's cameras, 512 keypoints, loop closures on) on the default
+    device (cuda:0), or on `dev` when that is the CPU, then the ROS2 bag's
+    first BAG_ROS2_FRAMES frames.  Returns the fused kernel's launches by
+    site over both runs."""
+    import os
+    import shutil
+
+    from okvis2x_tpu_torch.apps import okvis2x_node_synchronous as node
+    from okvis2x_tpu_torch.ops import hamming
+
+    what = "bag replay"
+    here = os.path.dirname(os.path.abspath(__file__))
+    app_root, root = os.path.join(here, "build", "app_phase"), os.path.join(here, "build",
+                                                                            "bag_phase")
+    ds_dir, cfg = os.path.join(app_root, "dataset"), os.path.join(app_root, "okvis2.yaml")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    bag1, bag2, written = write_bags(ds_dir, root)
+    check_bags(what, bag1, bag2, written)
+    n_imu = sum(topic == BAG_IMU_TOPIC for topic, _, _ in written)
+    t_bags = time.perf_counter() - t0
+
+    def replay(bag, out, max_frames=0):
+        argv = ["--bag", bag, "--config", cfg, "--output", out]
+        if max_frames:
+            argv += ["--max-frames", str(max_frames)]
+        if dev.type == "cpu":
+            argv += ["--device", "cpu"]
+        hamming.reset_launch_counts()
+        t = time.perf_counter()
+        rc = node.main(argv)
+        t = time.perf_counter() - t
+        if rc != 0:
+            raise RuntimeError(f"{what}: the node returned {rc} on {bag}")
+        return dict(hamming.hamming_match.site_launches), t
+
+    outs = [os.path.join(root, "out_ros1"), os.path.join(root, "out_ros2")]
+    with timed_frames(dev) as (wall, pipes):
+        sites, t_run = replay(bag1, outs[0])
+        n_timed = len(wall)
+        sites2, t_run2 = replay(bag2, outs[1], BAG_ROS2_FRAMES)
+    ERRORS.check(what)
+    vio, vio2 = pipes
+    if vio.device != dev or vio2.device != dev:
+        raise RuntimeError(f"{what}: the node ran on {vio.device}, not {dev}")
+    if vio._lc_thread is not None or vio2._lc_thread is not None:
+        raise RuntimeError(f"{what}: the place-recognition worker outlived finish()")
+    m = node_metrics(ds_dir, outs[0])
+    n_est = len(vio.est.full_trajectory()[0])
+    if m["n_frames"] != APP_FRAMES or m["n_final"] != n_est or not m["final_finite"]:
+        raise RuntimeError(f"{what}: okvis2_trajectory.csv has {m['n_frames']} rows for "
+                           f"{APP_FRAMES} frames, okvis2_final_trajectory.csv {m['n_final']} for "
+                           f"{n_est} states (finite: {m['final_finite']})")
+    limit = min(ATE_LIMIT_M, max(2 * JAX_NODE["ate_online_m"], 0.05))
+    if not m["ate_online_m"] <= limit:
+        raise RuntimeError(f"{what}: online ATE {m['ate_online_m']} m exceeds {limit} m")
+    for key in ("ate_online_m", "ate_final_m"):
+        if not abs(m[key] - JAX_NODE[key]) <= JAX_NODE_TOL_M:
+            raise RuntimeError(f"{what}: {key} {m[key]} is more than {JAX_NODE_TOL_M} m from "
+                               f"the JAX node's {JAX_NODE[key]}")
+    if dev.type == "cuda" and (sites.get("assoc", 0) != 4 * APP_FRAMES
+                               or sites2.get("assoc", 0) != 4 * BAG_ROS2_FRAMES):
+        raise RuntimeError(f"{what}: the association did not launch the fused kernel 4 times a "
+                           f"frame: {sites} over {APP_FRAMES} frames, {sites2} over "
+                           f"{BAG_ROS2_FRAMES}")
+    p1 = np.stack([T[:3] for _, T in vio.states_log[:BAG_ROS2_FRAMES]])
+    p2 = np.stack([T[:3] for _, T in vio2.states_log])
+    gap = float(np.abs(p1 - p2).max()) if len(p2) == BAG_ROS2_FRAMES else np.inf
+    if not gap <= BAG_ROS2_TOL_M:
+        raise RuntimeError(f"{what}: the ROS2 bag's {len(p2)} online poses differ from the ROS1 "
+                           f"run's by {gap} m")
+    ms = np.asarray(wall[:n_timed]) * 1e3
+    peak = peak_text(dev)
+    print(f"{what}: {len(written)} messages ({APP_FRAMES} stereo frames, {n_imu} IMU samples) "
+          f"written as a ROS1 and a ROS2 bag and read back bit for bit in {t_bags:.1f} s; "
+          f"okvis2x_node_synchronous on the ROS1 bag on {vio.device}: {t_run:.1f} s, online "
+          f"ATE {m['ate_online_m']:.4f} m (JAX node {JAX_NODE['ate_online_m']:.4f}, limit "
+          f"{limit:.4f}), final ATE {m['ate_final_m']:.4f} m (JAX node "
+          f"{JAX_NODE['ate_final_m']:.4f}) over {m['n_final']} states, "
+          f"{vio.n_loop_closures} loop closures, the worker stopped, ms/frame p50 "
+          f"{np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max {ms.max():.1f}, "
+          f"peak allocated {peak}; the ROS2 "
+          f"bag's first {BAG_ROS2_FRAMES} frames in {t_run2:.1f} s, {gap:.3e} m from the ROS1 "
+          f"run's; fused match launches by site {sites} and {sites2} ({card})")
+    return {k: sites.get(k, 0) + sites2.get(k, 0) for k in {*sites, *sites2}}
 
 
 def gnss_dataset(root, n_frames, **overrides):
@@ -2942,6 +3173,9 @@ def main() -> int:
                 add_sites(app_phase(dev, card), "app")
                 print(f"app phase: {time.perf_counter() - t0:.1f} s")
                 t0 = time.perf_counter()
+                add_sites(bag_phase(dev, card), "bag")
+                print(f"bag-replay phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
                 add_sites(gnss_phase(dev, card), "gnss")
                 print(f"GNSS phase: {time.perf_counter() - t0:.1f} s")
                 kept = {}
@@ -2966,7 +3200,7 @@ def main() -> int:
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
     # times at 704x1024, the map matching's shape; launches over phases 4-9,
-    # the app, GNSS, RGB-D, depth-mode, fine-grid and LiDAR phases
+    # the app, bag-replay, GNSS, RGB-D, depth-mode, fine-grid and LiDAR phases
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

@@ -25,9 +25,12 @@ Layer map (as in okvis2x_tpu):
   frontend/  detection, description,                   marginalisation
              matching, triangulation        ops/       the Hamming kernel
   pipeline/  per-frame orchestration,       io/        datasets (EuRoC,
-             depth helpers, submapping                 extended, Leica, RPG),
-  parallel/  matrix-free pose-graph PCG                configs, PNG, YAML,
-  apps/      the dataset app                           synthetic data, ATE
+             depth helpers, submapping,                extended, Leica, RPG),
+             queues                                    configs, PNG, YAML,
+  parallel/  matrix-free pose-graph PCG                synthetic data, ATE,
+  apps/      the dataset app, the                      ROS1/ROS2 bags
+             synchronous node               ros2/      messages, transport,
+                                                       publisher, subscriber
   models/    depth nets, census, MVS        mapping/   occupancy grid, colour
   api.py     public state types
   convert.py state from the JAX package     utils/     timing, the
@@ -53,9 +56,11 @@ stereo and multi-view depth nets with the JAX package's shipped weights,
 and occupancy submaps with colour, which the app's rgbd and depth modes
 integrate keyframe by keyframe: dense grids, or brick-sparse ones at fine
 resolutions, with their meshes and bounding boxes exported; LiDAR-visual-
-inertial SLAM (sweep deskew, submap ICP rows, map-to-map alignment edges).
-Semantic weighting, ROS2 and the multi-device ``parallel/`` solvers are not
-ported yet.
+inertial SLAM (sweep deskew, submap ICP rows, map-to-map alignment edges);
+the synchronous ROS2 node without ROS (``apps/okvis2x_node_synchronous.py``:
+ROS1 and ROS2 bags replayed through the node graph of ``apps/okvis2x_node.py``
+over the in-process transport of ``ros2/``).  Semantic weighting, the live
+rclpy node and the multi-device ``parallel/`` solvers are not ported yet.
 
 The entry points run on the first CUDA device unless the caller names
 another device (``device="cpu"`` for the CPU).

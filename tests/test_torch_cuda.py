@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions,
 and the port's device code that has no kernel of its own (the depth nets,
 the occupancy grids, dense and brick-sparse, the submap-ICP rows, the LiDAR
-pipeline, the mapping modes of the app) on the card against the CPU.
+pipeline, the mapping modes of the app, the synchronous node) on the card
+against the CPU.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device
 (all but the last, which checks what happens without one).
@@ -220,6 +221,48 @@ def test_cuda_app_runs_on_the_card_by_default(cuda, tmp_path, monkeypatch):
                             "--output", out])
     assert devices == [torch.device("cuda:0")]
     assert np.isfinite(ate) and os.path.exists(os.path.join(out, "trajectory.tum"))
+
+
+def test_cuda_node_replays_a_bag_on_the_card_by_default(cuda, tmp_path, monkeypatch):
+    """Without --device the synchronous node's pipeline runs on cuda:0 (where
+    there is no card it raises: tests/test_torch_node.py); its online poses
+    on a small ROS1 bag agree with the node's on the CPU within 1e-3 m, as
+    chip_smoke.py holds the VIO phase."""
+    import os
+    import sys
+    import types
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from okvis2x_tpu_torch.apps import okvis2x_node_synchronous as node
+    from okvis2x_tpu_torch.io import synthetic
+    from okvis2x_tpu_torch.pipeline.vio import VioPipeline
+
+    pipes = []
+    init = VioPipeline.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        pipes.append(self)
+
+    monkeypatch.setattr(VioPipeline, "__init__", spy)
+    ds = str(tmp_path / "ds")
+    cam, T_SC, _ = synthetic.generate(ds, duration=0.8, frame_rate=10.0, width=160, height=120)
+    fx, fy, cx, cy = (float(v) for v in cam.fxfycxcy)
+    rig = types.SimpleNamespace(T_SC=T_SC, camera=dict(
+        width=160, height=120, fx=fx, fy=fy, cx=cx, cy=cy,
+        dist_params=[float(v) for v in cam.dist_params]))
+    cfg = str(tmp_path / "okvis2.yaml")
+    chip_smoke.app_config(cfg, rig)
+    bag, _, _ = chip_smoke.write_bags(ds, str(tmp_path))
+    args = ["--bag", bag, "--config", cfg, "--max-frames", "4", "--max-keypoints", "128",
+            "--no-loop-closures"]
+    assert node.main([*args, "--output", str(tmp_path / "card")]) == 0
+    assert node.main([*args, "--output", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+    assert [p.device for p in pipes] == [torch.device("cuda:0"), torch.device("cpu")]
+    a, b = (np.stack([T[:3] for _, T in p.states_log]) for p in pipes)
+    assert a.shape == b.shape == (4, 3) and np.isfinite(a).all()
+    assert float(np.abs(a - b).max()) < 1e-3
 
 
 def textured(h, w, seed):
