@@ -86,6 +86,22 @@
    launched 4 times a frame from the association; then the ROS2 bag's first
    4 frames, whose online poses must lie within 1e-6 m of the ROS1 run's; it
    prints the frame times, the peak memory and the launches by site;
+7b''. the live nodes on the same frames: (a) the network node
+   (`okvis2x_network_node.build_network_graph` over the in-process
+   transport on the default device, cuda:0, under the JAX `main`'s
+   defaults, 32 disparities), fed the dataset's IMU samples and images on
+   its input topics: a depth, a sigma and an odometry message a frame, the
+   online ATE at most twice the JAX network node's on the same messages on
+   the CPU (floor 0.05 m, `JAX_NETWORK_NODE`) and within 1e-3 m of it, the
+   fused kernel launched 4 times a frame from the association, frame 0's
+   census depth on the card within 1e-3 m of the CPU's on 99.9% of the
+   pixels; it prints the frame times with and without the stereo depth, the
+   window solve and the peak memory; (b) the realsense publisher over a
+   fake device replaying the dataset: every frame and IMU row published;
+   (c) the native loader: whether its library built (it needs libpng), the
+   dataset's 24 PNGs decoded equal to io/png.py's, the decodes that fell
+   back to io/png.py counted, the native queue's round trip, drop, timeout
+   and shutdown (or its refusal without the library);
 7c. GNSS and online calibration through the app: `generate` writes the first
    24 frames (1.2 s) of the flagship circuit (752x480, 20 Hz) with its 5 Hz
    gps0/ stream (a frame yawed 0.4 rad and moved (30, -12, 4) m from the
@@ -117,6 +133,10 @@
    equal the CPU's (counts, occupied sets, log-odds within 1e-5); it prints
    the stage means, the nets' device times (CUDA events), one integration's
    time and the peak memory;
+7d'. asynchronous submapping: that phase's 16 depth0/ frames and online
+   states through `AsyncSubmapping` (two threads, the port's queues) into a
+   grid on the card, against the synchronous `SubmappingInterface` fed the
+   same items: every frame integrated, counts equal, log-odds within 1e-5;
 7e. the depth mode: 32 frames of the sinusoid scene at the same operating
    point with cam0 an rgb camera in the config and an se2.yaml (the dense
    grid, submaps of up to 50 keyframes), `--mode depth --se2-config`: the
@@ -256,6 +276,19 @@ JAX_NODE = dict(ate_online_m=0.0018682588888909919, ate_final_m=0.00078420649539
                 n_frames=12, n_final=6)
 # the node's online and final ATE are also held within this of JAX_NODE's
 JAX_NODE_TOL_M = 1e-3
+# the live-nodes phase: the network node on the app phase's dataset under the
+# JAX node's `main` defaults (EstimatorConfig(), PipelineConfig(), 32
+# disparities, prefix "okvis"); its online ATE within JAX_NODE_TOL_M of the
+# JAX network node's on the same messages on the CPU (`python
+# tests/test_torch_network_node.py`) and at most twice it (floor 0.05 m);
+# frame 0's census depth on the card within NETWORK_DEPTH_TOL_M of the CPU's
+# on at least NETWORK_DEPTH_SHARE of the pixels
+NETWORK_MAX_DISP = 32
+NETWORK_PREFIX = "okvis"
+JAX_NETWORK_NODE = dict(ate_online_m=0.006739173725338425, n_odometry=12, n_depth=12,
+                        n_sigma=12)
+NETWORK_DEPTH_TOL_M = 1e-3
+NETWORK_DEPTH_SHARE = 0.999
 # the GNSS phase: the first 24 frames (1.2 s; 30 until the LiDAR phase came, 40
 # until the RGB-D phase came) of the flagship circuit with a 5 Hz GNSS stream in
 # a frame yawed by 0.4 rad and moved by (30, -12, 4) m, as
@@ -1601,7 +1634,8 @@ def app_phase(dev, card):
           f"the last frame) written, read back and checked in {t_data:.1f} s; "
           f"okvis2x_app --mode slam on {vio.device}: {t_run:.1f} s, online ATE {ate:.4f} m, "
           f"{len(fts)} final-BA states, ms/frame p50 {np.percentile(ms, 50):.1f} p90 "
-          f"{np.percentile(ms, 90):.1f} max {ms.max():.1f}, peak allocated {peak}, "
+          f"{np.percentile(ms, 90):.1f} max {ms.max():.1f}, window solve (2.5 CollectSolve) "
+          f"mean {timing.mean_ms('2.5 CollectSolve'):.2f} ms, peak allocated {peak}, "
           f"IMU CSV {imu_rows} rows, tracks CSV {track_rows} rows; fused match launches by "
           f"site {sites} ({card})")
     return sites
@@ -1776,6 +1810,248 @@ def bag_phase(dev, card):
           f"bag's first {BAG_ROS2_FRAMES} frames in {t_run2:.1f} s, {gap:.3e} m from the ROS1 "
           f"run's; fused match launches by site {sites} and {sites2} ({card})")
     return {k: sites.get(k, 0) + sites2.get(k, 0) for k in {*sites, *sites2}}
+
+
+def publish_dataset(transport, ds_dir, topic_msgs, n_frames=0):
+    """Publish the EuRoC-layout dataset `ds_dir`'s events, in `events()`'s
+    order, on a node's input topics as a live driver would: each IMU sample on
+    "imu", each stereo frame's images (float32 in [0, 1]) on "cam0/image" and
+    "cam1/image"; stop after `n_frames` frames (0: all).  `topic_msgs` is the
+    messages module of the ROS2 layer (the JAX package's or the port's).
+    Returns each frame's seconds from its first image to the end of its device
+    work."""
+    import torch
+    from okvis2x_tpu_torch.io import euroc
+
+    ds = euroc.EurocDataset(ds_dir)
+    cams = [transport.advertise(f"cam{c}/image") for c in range(2)]
+    imu = transport.advertise("imu")
+    wall = []
+    for kind, ev in ds.events():
+        if kind == "imu":
+            t, gyr, acc = ev
+            imu.publish(topic_msgs.Imu(topic_msgs.Header(t), np.asarray(gyr), np.asarray(acc)))
+            continue
+        if not ev.paths[0]:
+            continue
+        images = [ds.load_image(p) for p in ev.paths[:2]]
+        t0 = time.perf_counter()
+        for pub, img in zip(cams, images):
+            pub.publish(topic_msgs.Image(topic_msgs.Header(ev.t), img))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        if n_frames and len(wall) == n_frames:
+            break
+    return wall
+
+
+def network_metrics(transport, ds_dir, prefix=NETWORK_PREFIX):
+    """What the live-nodes phase checks of a network node's run over a
+    `LocalTransport`: the messages on its depth, sigma and odometry topics
+    and the online ATE of its odometry against the dataset's ground truth."""
+    from okvis2x_tpu_torch.io import euroc, trajectory_io
+
+    gt = euroc.EurocDataset(ds_dir).ground_truth
+    odom = transport.history.get(f"{prefix}/odometry", [])
+    ts = np.array([o.header.stamp for o in odom])
+    pos = np.stack([np.asarray(o.T_WB[:3], np.float64) for o in odom])
+    return dict(
+        ate_online_m=float(trajectory_io.ate_rmse(ts, pos, gt[:, 0], gt[:, 1:4])),
+        n_odometry=len(odom), n_depth=transport.count(f"{prefix}/network/depth"),
+        n_sigma=transport.count(f"{prefix}/network/depth_sigma"),
+        positions_finite=bool(np.isfinite(pos).all()),
+    )
+
+
+def network_node_phase(dev, card, ds_dir, cfg):
+    """(a) The port's network node (`build_network_graph` over a
+    `LocalTransport`) on the app phase's dataset under the JAX `main`'s
+    defaults, on the default device (cuda:0) or on `dev` when that is the
+    CPU: a depth, sigma and odometry message a frame, the online ATE against
+    JAX_NETWORK_NODE, frame 0's census depth against the CPU's.  Returns the
+    fused kernel's launches by site."""
+    import torch
+    from okvis2x_tpu_torch.apps.okvis2x_network_node import build_network_graph
+    from okvis2x_tpu_torch.apps.okvis2x_node import load_rig
+    from okvis2x_tpu_torch.io import euroc
+    from okvis2x_tpu_torch.models import stereo
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.ros2 import LocalTransport
+    from okvis2x_tpu_torch.ros2 import messages as m
+    from okvis2x_tpu_torch.utils import timing
+
+    what = "live nodes (network node)"
+    cameras, T_SC = load_rig(cfg)
+    tr = LocalTransport()
+    start_mib = None
+    if dev.type == "cuda":
+        start_mib = torch.cuda.memory_allocated(dev) / 2**20
+    with timed_frames(dev) as (wall, pipes):
+        core, _, _, _ = build_network_graph(tr, cameras, T_SC, prefix=NETWORK_PREFIX,
+                                            max_disp=NETWORK_MAX_DISP,
+                                            device=None if dev.type == "cuda" else dev)
+        timing.reset()
+        hamming.reset_launch_counts()
+        t0 = time.perf_counter()
+        frame_s = publish_dataset(tr, ds_dir, m)
+        core.pipe.finish()
+        t_run = time.perf_counter() - t0
+    sites = dict(hamming.hamming_match.site_launches)
+    ERRORS.check(what)
+    vio = core.pipe
+    if vio.device != dev:
+        raise RuntimeError(f"{what}: the node ran on {vio.device}, not {dev}")
+    if vio._lc_thread is not None:
+        raise RuntimeError(f"{what}: the place-recognition worker outlived finish()")
+    n = len(frame_s)
+    met = network_metrics(tr, ds_dir)
+    counts = (met["n_depth"], met["n_sigma"], met["n_odometry"])
+    if n != APP_FRAMES or counts != (n, n, n) or not met["positions_finite"]:
+        raise RuntimeError(f"{what}: {n} frames published; depth, sigma and odometry "
+                           f"messages {counts}, finite {met['positions_finite']}")
+    ref = JAX_NETWORK_NODE["ate_online_m"]
+    limit = min(ATE_LIMIT_M, max(2 * ref, 0.05))
+    ate = met["ate_online_m"]
+    if not (ate <= limit and abs(ate - ref) <= JAX_NODE_TOL_M):
+        raise RuntimeError(f"{what}: online ATE {ate} m, the JAX network node's {ref} m "
+                           f"(at most {limit} m and within {JAX_NODE_TOL_M} m of it)")
+    if dev.type == "cuda" and sites.get("assoc", 0) != 4 * n:
+        raise RuntimeError(f"{what}: the association did not launch the fused kernel 4 times "
+                           f"a frame: {sites} over {n} frames")
+    # frame 0's census depth on the node's device against the CPU's
+    depth0 = tr.history[f"{NETWORK_PREFIX}/network/depth"][0].data
+    fx = float(np.asarray(cameras[0].fxfycxcy)[0])
+    baseline = float(np.linalg.norm(T_SC[1][:3] - T_SC[0][:3]))
+    ds = euroc.EurocDataset(ds_dir)
+    left, right = (torch.as_tensor(ds.load_image(p)) for p in ds.frames[0].paths[:2])
+    cpu = stereo.stereo_depth(left, right, fx, baseline, max_disp=NETWORK_MAX_DISP).depth.numpy()
+    agree = ((depth0 > 0) == (cpu > 0)) & (np.abs(depth0 - cpu) <= NETWORK_DEPTH_TOL_M)
+    share = float(agree.mean())
+    if not share >= NETWORK_DEPTH_SHARE:
+        raise RuntimeError(f"{what}: frame 0's depth on {dev} agrees with the CPU's within "
+                           f"{NETWORK_DEPTH_TOL_M} m on {share:.5f} of the pixels "
+                           f"(at least {NETWORK_DEPTH_SHARE})")
+    total = np.asarray(frame_s) * 1e3
+    ms = np.asarray(wall) * 1e3
+    peak = peak_text(dev)
+    print(f"{what}: build_network_graph over LocalTransport on {vio.device}, {n} frames of "
+          f"{left.shape[1]}x{left.shape[0]} ({NETWORK_MAX_DISP} disparities, the JAX main's "
+          f"EstimatorConfig() and PipelineConfig()): {t_run:.1f} s; {counts[0]} depth, "
+          f"{counts[1]} sigma and {counts[2]} odometry messages; online ATE {ate:.4f} m (JAX "
+          f"network node {ref:.4f}, limit {limit:.4f}); frame 0's depth equal to the CPU's "
+          f"within {NETWORK_DEPTH_TOL_M} m on {share:.5f} of the pixels "
+          f"({int((cpu > 0).sum())} valid on the CPU, {int((depth0 > 0).sum())} on {dev}); "
+          f"ms/frame (stereo depth and the frame) p50 {np.percentile(total, 50):.1f} p90 "
+          f"{np.percentile(total, 90):.1f} max {total.max():.1f}, of which process_frame p50 "
+          f"{np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max {ms.max():.1f}; "
+          f"window solve (2.5 CollectSolve) mean {timing.mean_ms('2.5 CollectSolve'):.2f} ms, "
+          f"3.2 SolveDevice mean {timing.mean_ms('3.2 SolveDevice'):.2f} ms; peak allocated "
+          f"{peak}{'' if start_mib is None else f' ({start_mib:.1f} at the start)'}; fused "
+          f"match launches by site {sites} ({card})")
+    return sites
+
+
+def realsense_check(ds_dir):
+    """(b) The port's realsense publisher (`run_publisher`) over a
+    `FakeRealsense` replaying the dataset: a message on each camera topic a
+    frame and on the IMU topic an IMU sample."""
+    from okvis2x_tpu_torch.apps.okvis_node_realsense_publisher import run_publisher
+    from okvis2x_tpu_torch.io import euroc
+    from okvis2x_tpu_torch.io.realsense import FakeRealsense
+    from okvis2x_tpu_torch.ros2 import LocalTransport
+
+    what = "live nodes (realsense publisher)"
+    ds = euroc.EurocDataset(ds_dir)
+    driver = FakeRealsense(ds)
+    tr = LocalTransport()
+    t0 = time.perf_counter()
+    run_publisher(tr, driver, prefix="realsense")
+    driver.start_streaming()
+    driver.wait_done(timeout=120.0)
+    driver.stop_streaming()
+    t_run = time.perf_counter() - t0
+    if driver._thread.is_alive():
+        raise RuntimeError(f"{what}: the fake driver's thread did not stop")
+    want = (len(ds.frames), len(ds.frames), len(ds.imu.t))
+    got = tuple(tr.count(f"realsense/{t}") for t in ("cam0/image", "cam1/image", "imu"))
+    if got != want:
+        raise RuntimeError(f"{what}: cam0, cam1 and IMU messages {got}, the dataset has {want}")
+    print(f"{what}: FakeRealsense over the dataset through run_publisher in {t_run:.2f} s: "
+          f"{got[0]} + {got[1]} images and {got[2]} IMU samples published, as many as the "
+          "dataset's")
+
+
+def native_loader_check(ds_dir):
+    """(c) The port's native loader: whether its library built (it needs
+    libpng), each of the dataset's PNGs decoded by `decode_image` and by the
+    prefetcher equal to ``io/png.py``'s bit for bit, the frames that fell back
+    to ``io/png.py`` counted; with the library, the queue's round trip, drop,
+    timeout and shutdown; without it, the queue's refusal."""
+    from okvis2x_tpu_torch.io import euroc, native_loader, png
+
+    what = "live nodes (native loader)"
+    paths = [p for fr in euroc.EurocDataset(ds_dir).frames for p in fr.paths if p]
+    t0 = time.perf_counter()
+    built = native_loader.available()
+    t_build = time.perf_counter() - t0
+    native_loader.FALLBACKS.reset()
+    t0 = time.perf_counter()
+    pf = native_loader.ImagePrefetcher(paths)
+    for path, img in zip(paths, pf):
+        ref = png.decode_image(path)
+        if not (np.array_equal(native_loader.decode_image(path), ref)
+                and np.array_equal(img, ref)):
+            raise RuntimeError(f"{what}: {path} decodes unlike io/png.py's")
+    pf.close()
+    t_dec = time.perf_counter() - t0
+    fallbacks = native_loader.FALLBACKS.frames
+    if fallbacks != (0 if built else 2 * len(paths)):
+        raise RuntimeError(f"{what}: {fallbacks} decodes fell back to io/png.py with the "
+                           f"library {'built' if built else 'missing'}")
+    if built:
+        q = native_loader.NativeQueue(capacity=2)
+        a = np.arange(10, dtype=np.float64)
+        ok = (q.push(a) == 0 and q.push(2 * a) == 0 and q.push(3 * a, block=False) == 1
+              and np.array_equal(q.pop().view(np.float64), 2 * a)
+              and np.array_equal(q.pop().view(np.float64), 3 * a)
+              and q.size() == 0 and q.pop(timeout_ms=50) is None)
+        q.shutdown()
+        if not (ok and q.push(a) == -1):
+            raise RuntimeError(f"{what}: the native queue's round trip, drop, timeout or "
+                               "shutdown failed")
+        queue = "round trip, drop, timeout and shutdown as the reference's tests expect"
+    else:
+        try:
+            native_loader.NativeQueue()
+        except RuntimeError:
+            queue = "refused without the library, as the JAX package's is"
+        else:
+            raise RuntimeError(f"{what}: the queue started without its library")
+    reason = "" if built else " ({})".format(next(
+        (ln.strip() for ln in native_loader.LIBRARY.error.splitlines() if "error" in ln),
+        native_loader.LIBRARY.error.strip()))
+    print(f"{what}: library built from native/dataloader.cpp: {built}{reason}, "
+          f"{t_build:.2f} s; {len(paths)} PNGs decoded by decode_image and the prefetcher, "
+          f"equal to io/png.py's bit for bit, in {t_dec:.2f} s; {fallbacks} decodes fell back "
+          f"to io/png.py; queue: {queue}")
+    return built, fallbacks
+
+
+def live_nodes_phase(dev, card):
+    """The live nodes on the app phase's dataset and config (build/app_phase/,
+    written by `app_phase`): (a) the network node, (b) the realsense
+    publisher, (c) the native loader.  Returns the fused kernel's launches by
+    site."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    app_root = os.path.join(here, "build", "app_phase")
+    ds_dir, cfg = os.path.join(app_root, "dataset"), os.path.join(app_root, "okvis2.yaml")
+    sites = network_node_phase(dev, card, ds_dir, cfg)
+    realsense_check(ds_dir)
+    native_loader_check(ds_dir)
+    return sites
 
 
 def gnss_dataset(root, n_frames, **overrides):
@@ -2087,6 +2363,7 @@ class DepthRecorder:
     def __init__(self, pipeline_cls, submapping_cls):
         self.classes = (pipeline_cls, submapping_cls)
         self.pipe, self.wall, self.n_priors, self.n_integrated = None, [], 0, 0
+        self.frames = []  # (t, fid, is_keyframe) of each frame, as process_frame reported
         self.last_integration = None  # the arguments of the last integration
         self.submapping = None  # the interface that integrated them
 
@@ -2106,6 +2383,7 @@ class DepthRecorder:
                 torch.cuda.synchronize(pipe.device)
             rec.wall.append(time.perf_counter() - t)
             rec.pipe = rec.pipe or pipe
+            rec.frames.append((args[0], info["fid"], info["is_keyframe"]))
             return info
 
         def attached(pipe, *args, **kwargs):
@@ -2467,6 +2745,85 @@ def depth_phase(dev, card, mode):
     if mode == "rgbd":
         depth_device_checks(dev, card, cap, rec.last_integration)
     return sites, rec, cap, ds_dir
+
+
+def async_submapping_phase(dev, card, rec, ds_dir):
+    """(d) The RGB-D phase's depth0/ frames and online states through the
+    port's `AsyncSubmapping` on the card: state k, then depth frame k, each
+    next step once the runner has integrated the last (so that every frame is
+    anchored to the newest keyframe of its time, as in the app), into a
+    grid of the app's configuration; the same items (the newest keyframe,
+    the frame's pose composed with cam0's extrinsics, its depth) through the
+    synchronous `SubmappingInterface` on the card: counts equal, log-odds
+    within 1e-5, `n_integrated` equal to the frames fed."""
+    import torch
+    from okvis2x_tpu_torch import api
+    from okvis2x_tpu_torch.core import se3
+    from okvis2x_tpu_torch.io import xdataset
+    from okvis2x_tpu_torch.pipeline.submapping import SubmappingInterface
+    from okvis2x_tpu_torch.pipeline.submapping_runner import AsyncSubmapping
+
+    what = "asynchronous submapping"
+    vio, cfg = rec.pipe, rec.submapping.cfg
+    ds = xdataset.XDataset(ds_dir)
+    depth_at = {round(t, 6): p for t, p in ds.depth_frames}
+    cam, T_SC = vio.cameras[0], np.asarray(vio.T_SC[0], np.float64)
+    items = []
+    for (t, fid, is_kf), (t_log, T_WS) in zip(rec.frames, vio.states_log):
+        if abs(t - t_log) > 1e-9 or round(t, 6) not in depth_at:
+            raise RuntimeError(f"{what}: frame {fid} at {t} has no state or no depth image")
+        items.append((api.State(id=fid, timestamp=t, T_WS=np.asarray(T_WS, np.float64),
+                                v_W=np.zeros(3), b_g=np.zeros(3), b_a=np.zeros(3),
+                                omega_S=np.zeros(3), is_keyframe=bool(is_kf)),
+                      ds.load_depth(depth_at[round(t, 6)])))
+    limit_s = 60.0
+    t0 = time.perf_counter()
+    runner = AsyncSubmapping(SubmappingInterface(cfg, device=dev), cam=cam, T_SC=T_SC)
+    for k, (st, depth) in enumerate(items):
+        runner.state_update_callback(st)
+        runner.add_depth_measurement(st.timestamp, depth)
+        while runner.n_integrated < k + 1 and time.perf_counter() - t0 < limit_s:
+            time.sleep(0.001)
+    runner.finish()
+    for th in (runner._t_assembly, runner._t_integrate):
+        th.join(limit_s)
+        if th.is_alive():
+            raise RuntimeError(f"{what}: {th.name} did not stop")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_async = time.perf_counter() - t0
+    ERRORS.check(what)
+    if runner.n_integrated != len(items) or runner.n_dropped:
+        raise RuntimeError(f"{what}: {runner.n_integrated} of {len(items)} frames integrated, "
+                           f"{runner.n_dropped} dropped")
+    t0 = time.perf_counter()
+    si = SubmappingInterface(cfg, device=dev)
+    kf = None
+    for st, depth in items:
+        kf = (st.id, st.T_WS) if st.is_keyframe else kf
+        T_WC = se3.se3_multiply(torch.as_tensor(st.T_WS), torch.as_tensor(T_SC)).numpy()
+        si.integrate_depth(kf[0], kf[1], T_WC, cam, depth)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_sync = time.perf_counter() - t0
+    a, b = runner.si.maps, si.maps
+    same = len(a) == len(b) and all(
+        x.anchor_fid == y.anchor_fid and x.n_frames == y.n_frames
+        and torch.equal(x.sm.weight, y.sm.weight) for x, y in zip(a, b))
+    lo_err = max((float((x.sm.logodds - y.sm.logodds).abs().max()) for x, y in zip(a, b)),
+                 default=np.inf)
+    if not same or not lo_err <= 1e-5:
+        raise RuntimeError(f"{what}: the asynchronous grids differ from the synchronous ones: "
+                           f"{len(a)} and {len(b)} submaps, counts equal {same}, log-odds "
+                           f"max |err| {lo_err}")
+    stats = grid_stats(runner.si)
+    print(f"{what}: the RGB-D phase's {len(items)} depth frames and online states "
+          f"({sum(st.is_keyframe for st, _ in items)} keyframes) through AsyncSubmapping on "
+          f"{dev} in {t_async:.2f} s ({runner.n_integrated} integrated, none dropped, both "
+          f"threads joined); the synchronous SubmappingInterface on the same items in "
+          f"{t_sync:.2f} s: {len(a)} submaps, counts equal ({stats['total_weight']:.0f}), "
+          f"log-odds max |err| {lo_err:.2e}, {stats['positive_voxels']} voxels with log-odds "
+          f"> 0 ({card})")
 
 
 def fine_args(ds_dir, root, n_frames=FINE_FRAMES):
@@ -3176,6 +3533,9 @@ def main() -> int:
                 add_sites(bag_phase(dev, card), "bag")
                 print(f"bag-replay phase: {time.perf_counter() - t0:.1f} s")
                 t0 = time.perf_counter()
+                add_sites(live_nodes_phase(dev, card), "live nodes")
+                print(f"live-nodes phase: {time.perf_counter() - t0:.1f} s")
+                t0 = time.perf_counter()
                 add_sites(gnss_phase(dev, card), "gnss")
                 print(f"GNSS phase: {time.perf_counter() - t0:.1f} s")
                 kept = {}
@@ -3185,6 +3545,10 @@ def main() -> int:
                     kept[mode] = (rec, cap, ds_dir)
                     add_sites(sites, mode)
                     print(f"{mode} phase: {time.perf_counter() - t0:.1f} s")
+                    if mode == "rgbd":
+                        t0 = time.perf_counter()
+                        async_submapping_phase(dev, card, rec, ds_dir)
+                        print(f"asynchronous submapping phase: {time.perf_counter() - t0:.1f} s")
                 t0 = time.perf_counter()
                 (rgbd_rec, rgbd_cap, _), (depth_rec, _, depth_dir) = kept["rgbd"], kept["depth"]
                 add_sites(fine_phase(dev, card, depth_dir, rgbd_cap, rgbd_rec.last_integration,
@@ -3200,7 +3564,8 @@ def main() -> int:
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
 
     # times at 704x1024, the map matching's shape; launches over phases 4-9,
-    # the app, bag-replay, GNSS, RGB-D, depth-mode, fine-grid and LiDAR phases
+    # the app, bag-replay, live-nodes, GNSS, RGB-D, depth-mode, fine-grid and
+    # LiDAR phases
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

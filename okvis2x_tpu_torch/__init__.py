@@ -28,9 +28,11 @@ Layer map (as in okvis2x_tpu):
              depth helpers, submapping,                extended, Leica, RPG),
              queues                                    configs, PNG, YAML,
   parallel/  matrix-free pose-graph PCG                synthetic data, ATE,
-  apps/      the dataset app, the                      ROS1/ROS2 bags
-             synchronous node               ros2/      messages, transport,
-                                                       publisher, subscriber
+  apps/      the dataset app, the                      ROS1/ROS2 bags, the
+             synchronous, live and                     native loader
+             network nodes, the             ros2/      messages, transports,
+             realsense publisher                       publisher, subscriber
+  tools/     bag creation and conversion, the ATE gate
   models/    depth nets, census, MVS        mapping/   occupancy grid, colour
   api.py     public state types
   convert.py state from the JAX package     utils/     timing, the
@@ -59,8 +61,11 @@ resolutions, with their meshes and bounding boxes exported; LiDAR-visual-
 inertial SLAM (sweep deskew, submap ICP rows, map-to-map alignment edges);
 the synchronous ROS2 node without ROS (``apps/okvis2x_node_synchronous.py``:
 ROS1 and ROS2 bags replayed through the node graph of ``apps/okvis2x_node.py``
-over the in-process transport of ``ros2/``).  Semantic weighting, the live
-rclpy node and the multi-device ``parallel/`` solvers are not ported yet.
+over the in-process transport of ``ros2/``); the live rclpy nodes, the network
+node with census stereo depth in the loop and the realsense publisher; the
+native frame prefetcher and queue (``io/native_loader.py``), the asynchronous
+submapping runner and the bag tools (``tools/``).  Semantic weighting and the
+multi-device ``parallel/`` solvers are not ported yet.
 
 The entry points run on the first CUDA device unless the caller names
 another device (``device="cpu"`` for the CPU).

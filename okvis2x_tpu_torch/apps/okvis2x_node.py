@@ -1,18 +1,27 @@
-"""The node graph of the port's ROS2 node, without the middleware.
+"""The port's ROS2 node (subscriber mode).
 
 Counterpart of ``apps/okvis2x_node.py`` (the reference's `okvis2x_node`,
-okvis_ros2/src/okvis2x_node.cpp) up to its rclpy `main`: `PipelineNodeCore`
-feeds sensor callbacks into `VioPipeline` and hands states and landmarks
-out; `build_node_graph` wires Subscriber -> PipelineNodeCore -> Publisher
-over any transport (Publisher.cpp:197-440, Subscriber.cpp:89-106).  The
-synchronous node (``okvis2x_node_synchronous.py``) and the tests drive this
-graph over the in-process `LocalTransport`.  The live rclpy node is not
-ported yet.
+okvis_ros2/src/okvis2x_node.cpp): `PipelineNodeCore` feeds sensor callbacks
+into `VioPipeline` and hands states and landmarks out; `build_node_graph`
+wires Subscriber -> PipelineNodeCore -> Publisher over any transport
+(Publisher.cpp:197-440, Subscriber.cpp:89-106).  The synchronous node
+(``okvis2x_node_synchronous.py``) and the tests drive this graph over the
+in-process `LocalTransport`; `main` is the live node, which bridges real
+ROS2 topics (``imu0``, ``cam<i>/image_raw``) onto the graph over an
+`RclpyTransport`.
+
+rclpy is optional: without it `main` prints where the graph is and returns
+1.  With it:
+
+    python -m okvis2x_tpu_torch.apps.okvis2x_node --ros-args \
+        -p config:=okvis2.yaml [-p odometry_rate:=50.0] [-p device:=cpu]
 
 The pipeline runs on the first CUDA device unless `device` names another.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 
@@ -97,3 +106,92 @@ def build_node_graph(transport, cameras, T_SC, est_cfg=None, pipe_cfg=None,
                      prefix=in_prefix, gps_topic=f"{in_prefix}/gps"
                      if in_prefix else "gps")
     return core, pub, sub
+
+
+def bridge_ros_inputs(node, transport, num_cams: int):
+    """Subscribe `node` to the live ROS2 sensor topics (``imu0``,
+    ``cam<i>/image_raw`` mono8) and dispatch each message, as a numpy
+    message, onto `transport`'s ``imu`` and ``cam<i>/image`` topics."""
+    from sensor_msgs.msg import Image as RosImage, Imu as RosImu
+
+    from okvis2x_tpu_torch.ros2 import messages as m
+
+    def stamp(msg):
+        return msg.header.stamp.sec + msg.header.stamp.nanosec * 1e-9
+
+    def imu_cb(msg):
+        transport._dispatch("imu", m.Imu(
+            m.Header(stamp(msg), "imu"),
+            np.array([msg.angular_velocity.x, msg.angular_velocity.y, msg.angular_velocity.z]),
+            np.array([msg.linear_acceleration.x, msg.linear_acceleration.y,
+                      msg.linear_acceleration.z])))
+
+    def image_cb(cam):
+        def cb(msg):
+            img = np.frombuffer(msg.data, np.uint8).reshape(
+                msg.height, msg.width).astype(np.float32) / 255.0
+            transport._dispatch(f"cam{cam}/image",
+                                m.Image(m.Header(stamp(msg), f"cam{cam}"), img))
+
+        return cb
+
+    node.create_subscription(RosImu, "imu0", imu_cb, 100)
+    for i in range(num_cams):
+        node.create_subscription(RosImage, f"cam{i}/image_raw", image_cb(i), 10)
+
+
+def load_rig(cfg_path: str):
+    """(cameras, T_SC) of the first two cameras of an okvis2.yaml."""
+    from okvis2x_tpu_torch.io import config as cfg_mod
+
+    vi = cfg_mod.load(cfg_path)
+    return ([c.camera for c in vi.cameras[:2]],
+            np.stack([c.T_SC for c in vi.cameras[:2]]))
+
+
+def main():
+    """The live node: rclpy's parameters `config`, `odometry_rate` and
+    `device` ("cuda:0"); spins until rclpy stops, then finishes the
+    pipeline.  Returns 1 without rclpy."""
+    try:
+        import rclpy
+        from rclpy.node import Node
+    except ImportError:
+        print(
+            "rclpy not available in this environment. The transport-"
+            "independent graph (build_node_graph over LocalTransport) is "
+            "importable from this module; wire it to your middleware of "
+            "choice.",
+            file=sys.stderr,
+        )
+        return 1
+
+    import torch
+
+    from okvis2x_tpu_torch.ros2.transport import RclpyTransport
+
+    class Okvis2xNode(Node):
+        def __init__(self):
+            super().__init__("okvis2x_node")
+            self.declare_parameter("config", "")
+            self.declare_parameter("odometry_rate", 0.0)
+            self.declare_parameter("device", "cuda:0")
+            cameras, T_SC = load_rig(self.get_parameter("config").value)
+            self.transport = RclpyTransport(self)
+            rate = self.get_parameter("odometry_rate").value or None
+            self.core, self.pub, self.sub = build_node_graph(
+                self.transport, cameras, T_SC, odometry_rate=rate,
+                num_cams=len(cameras),
+                device=torch.device(self.get_parameter("device").value),
+            )
+            bridge_ros_inputs(self, self.transport, len(cameras))
+
+    rclpy.init()
+    node = Okvis2xNode()
+    rclpy.spin(node)
+    node.core.pipe.finish()  # the recognition worker stops with the node
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,16 @@
-"""Grayscale PNG and PGM codec (numpy and the standard library's zlib).
+"""PNG and PGM codec (numpy and the standard library's zlib).
 
 Counterpart of the image decoding of ``okvis2x_tpu/io/native_loader.py``
 (`decode_image`) and of the PNG writes of ``okvis2x_tpu/io/dataset_writer.py``
 and ``synthetic.generate``, which go through libpng or Pillow: the port
 carries its own codec so that it needs neither.
 
-Handled: PNG of colour type 0 (grayscale) at bit depth 8 or 16, not
-interlaced, with any of the five row filters; binary PGM (P5) with a maxval
-up to 65535.  Anything else raises ``ValueError``.
+Decoded: PNG of colour type 0 (grey), 2 (RGB), 4 (grey and alpha) or 6
+(RGBA) at bit depth 8 or 16, not interlaced, with any of the five row
+filters; binary PGM (P5) with a maxval up to 65535.  Encoded: grey PNG and
+PGM.  Anything else raises ``ValueError``.  Two conversions to grey:
+`to_grey` computes what libpng gives the native loader (BT.709 weights in
+fixed point), `pil_grey` what Pillow's ``convert("L")`` gives (BT.601).
 """
 
 from __future__ import annotations
@@ -71,8 +74,12 @@ def unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
     return out[1:, 1:].reshape(H, S).astype(np.uint8)
 
 
+CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # by PNG colour type
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) uint8 or big-endian-decoded uint16 array."""
+    """PNG bytes -> (H, W) for grey, else (H, W, C) with C the colour type's
+    channels; uint8, or uint16 (big-endian samples decoded) at bit depth 16."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
     header, idat = None, []
@@ -84,22 +91,60 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     W, H, depth, colour, comp, filt, interlace = header
-    if colour != 0:
-        raise ValueError(f"PNG colour type {colour} is not handled (grayscale only)")
+    if colour not in CHANNELS:
+        raise ValueError(f"PNG colour type {colour} is not handled (palettes are not)")
     if depth not in (8, 16):
         raise ValueError(f"PNG bit depth {depth} is not handled (8 or 16)")
     if interlace != 0:
         raise ValueError("interlaced PNG is not handled")
     if comp != 0 or filt != 0:
         raise ValueError("unknown PNG compression or filter method")
-    bpp = depth // 8
+    C = CHANNELS[colour]
+    bpp = C * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != H * (1 + W * bpp):
         raise ValueError("PNG image data of the wrong size")
     img = unfilter(raw.reshape(H, 1 + W * bpp), bpp)
     if depth == 16:
-        return img.view(">u2").reshape(H, W).astype(np.uint16)
-    return img.reshape(H, W)
+        img = img.view(">u2").astype(np.uint16)
+    return img.reshape((H, W) if C == 1 else (H, W, C))
+
+
+def _rgb(img: np.ndarray) -> np.ndarray:
+    return img[..., :3].astype(np.int64)
+
+
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """(H, W) uint8 of a decoded PNG as libpng gives it to the native loader
+    (``png_set_strip_16``, ``png_set_strip_alpha``,
+    ``png_set_rgb_to_gray_fixed`` with its default coefficients 6968, 23434
+    and 2366 of 32768): 16-bit samples keep their high byte, alpha goes, and
+    colour is weighted at the samples' own depth, truncated at 8 bits and
+    rounded at 16."""
+    wide = img.dtype == np.uint16
+    if img.ndim == 3:
+        if img.shape[2] >= 3:
+            r, g, b = np.moveaxis(_rgb(img), -1, 0)
+            s = 6968 * r + 23434 * g + 2366 * b
+            img = (s + 16384) >> 15 if wide else s >> 15
+        else:
+            img = img[..., 0]
+    return (img >> 8 if wide else img).astype(np.uint8)
+
+
+def pil_grey(img: np.ndarray) -> np.ndarray:
+    """(H, W) uint8 of a decoded PNG as Pillow's ``Image.open(path).convert("L")``
+    gives it: 16-bit grey clipped at 255 (Pillow opens it as "I;16"), other
+    16-bit samples their high byte, alpha dropped, colour weighted
+    (19595 R + 38470 G + 7471 B + 32768) >> 16."""
+    if img.ndim == 2:
+        return np.minimum(img, 255).astype(np.uint8)
+    if img.dtype == np.uint16:
+        img = img >> 8
+    if img.shape[2] < 3:
+        return img[..., 0].astype(np.uint8)
+    r, g, b = np.moveaxis(_rgb(img), -1, 0)
+    return ((19595 * r + 38470 * g + 7471 * b + 32768) >> 16).astype(np.uint8)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -166,7 +211,7 @@ def encode_pgm(img: np.ndarray) -> bytes:
 
 
 def read(path: str) -> np.ndarray:
-    """Decode a PNG or PGM file to its (H, W) uint8 or uint16 array."""
+    """Decode a PNG or PGM file to its uint8 or uint16 array (`decode_png`)."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
@@ -185,8 +230,8 @@ def write(path: str, img: np.ndarray, level: int = 6):
 
 def decode_image(path: str) -> np.ndarray:
     """One image file -> (H, W) uint8, as ``native_loader.decode_image``
-    does through libpng: a 16-bit PNG keeps its high byte, a 16-bit PGM is
-    scaled by 255 / maxval."""
+    does through libpng: a PNG through `to_grey`, a 16-bit PGM scaled by
+    255 / maxval."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(b"P5"):
@@ -194,5 +239,4 @@ def decode_image(path: str) -> np.ndarray:
         if img.dtype == np.uint16:
             img = (img.astype(np.uint32) * 255 // maxval).astype(np.uint8)
         return img
-    img = decode_png(data)
-    return (img >> 8).astype(np.uint8) if img.dtype == np.uint16 else img
+    return to_grey(decode_png(data))

@@ -13,8 +13,8 @@ the reference's orchestration:
   * `ThreadedRunner` — a reader thread streaming sensor events through a
     queue into the synchronous pipeline (the `ThreadedSlam` input side);
     device work stays on the consumer thread, the reader thread overlaps
-    image decoding and disk reads with it.  It decodes through the dataset's
-    own `load_image` (``io/png.py``);
+    image decoding and disk reads with it, and the native loader's worker
+    pool (``io/native_loader.py``) decodes the images ahead of the reader;
   * `LatestValuePublisher` — the reference's `ThreadedPublisher`.
 
 Host Python and numpy throughout.
@@ -26,6 +26,8 @@ import collections
 import threading
 import time
 from typing import Callable, List, Optional
+
+import numpy as np
 
 
 class ShutDown(Exception):
@@ -170,12 +172,22 @@ class ThreadedRunner:
         self._producer = threading.Thread(target=self._produce, daemon=True)
 
     def _produce(self):
+        # native worker-pool prefetch of every camera image, delivered in
+        # event order (native/dataloader.cpp); without the library each
+        # image is decoded here by io/png.py, as load_image does
+        from okvis2x_tpu_torch.io.native_loader import ImagePrefetcher
+
+        prefetch = None
         try:
+            prefetch = ImagePrefetcher([p for kind, ev in self.ds.events()
+                                        if kind == "frames" and ev.paths[0]
+                                        for p in ev.paths if p])
             for kind, ev in self.ds.events():
                 if kind == "frames":
                     if not ev.paths[0]:
                         continue
-                    images = [self.ds.load_image(p) for p in ev.paths if p]
+                    images = [next(prefetch).astype(np.float32) / 255.0
+                              for p in ev.paths if p]
                     self.q.push_blocking_if_full(("frames", (ev.t, images)))
                 else:
                     self.q.push_blocking_if_full((kind, ev))
@@ -184,6 +196,9 @@ class ThreadedRunner:
             pass
         except Exception as e:  # raised again on the consumer's thread
             self.q.push_nonblocking(("error", e))
+        finally:
+            if prefetch is not None:
+                prefetch.close()
 
     def run(self, max_frames: int = 0) -> List[dict]:
         self._producer.start()
