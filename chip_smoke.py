@@ -15,8 +15,10 @@
    (100 launches captured in a CUDA graph, the replay timed with CUDA
    events), the time of a Python call, the plain version, one library
    formulation (a bfloat16 matmul of the +-1 descriptors, unpacked before
-   the clock starts) and the bound (the larger of bytes over the memory rate
-   and popcounts over the card's popcount rate); and two whole sites,
+   the clock starts), the bound (the larger of bytes over the memory rate
+   and popcounts over the card's popcount rate) and the launch floor (an
+   empty kernel launched the same way, one of 100 in a CUDA graph); and two
+   whole sites,
    `matcher.match_masked` at 704x1024 and `bow.assign_packed` at 704
    descriptors, as they were composed on the matrix kernel and as they are;
    The fused kernel is also held against its plain version from a second
@@ -196,7 +198,27 @@
    when folded in, the iteration budget and the frame times;
 10. the matrix-free PCG pose-graph solver on drifted circles with loop
    edges at 300 and 1000 nodes: the card's poses within 1e-6 of the CPU's,
-   and its time per solve.
+   and its time per solve;
+11. semantic keypoint weighting: 16 frames at 10 Hz of tests/test_adversarial.py's
+   textured world and circuit at the flagship's camera (752x480, rendered
+   in the background process meanwhile) through the flagship configuration
+   twice, weighting off and "net": both online ATEs at most 0.45 m, the
+   "net" one at most 1.15 x the "off" one + 0.02 m and within 1e-3 m of the
+   JAX pipeline's on the CPU (`JAX_SEG`), the association 4 launches a
+   frame, the fourth column only {1, 3, 5} with some keypoints above 1;
+   FastSCNN on the card against the CPU on frame 0 (logits within 1e-4,
+   classes equal at every keypoint whose top two are clear of that); it
+   prints the weights against the renderer's class maps, the frame times,
+   the peak memory and FastSCNN's time;
+12. the trainers: `train_segmentation`, `train_stereo` and `train_mvs` run
+   10 steps each at their default sizes on cuda:0 from small pools: losses
+   finite and falling from the first 3 steps to the last 3, the artifact
+   loads through the port's loader, one step's loss and gradients on the
+   card within 1e-4 relative and 1e-3 of each gradient's largest entry of
+   the CPU's from the same weights and batch; `train_vocab` on 20,000
+   descriptors: the tree and the assignments on the card equal to the
+   CPU's on the same descriptors; it prints the seconds a step and the peak
+   memory.
 
 Every phase fails on an ERROR record logged by any thread (the background
 workers log and carry on, as in the JAX package).  The second-to-last line
@@ -253,6 +275,31 @@ LC_PIPES = {
     "flagship": FLAGSHIP_PIPE,
 }
 LC_ESTS = {"synchronous": {}, "asynchronous": FLAGSHIP_EST, "flagship": FLAGSHIP_EST}
+# the segmentation phase: tests/test_adversarial.py's textured world (10
+# distractor clusters, 14 panels, 8 clouds) and circuit (radius 6 m at
+# 1.5 m/s, density 16, seed 21) seen by the flagship's camera, 16 frames at
+# 10 Hz, run by the flagship's configuration with the weighting off and on
+SEG_FRAMES = 16
+SEG_DATA = dict(duration=0.3 + (SEG_FRAMES - 0.5) / 10.0, frame_rate=10.0, imu_rate=200.0,
+                width=752, height=480, fx=460.0, density=16.0, seed=21, trajectory="circuit",
+                world="textured", world_kwargs=dict(n_distractors=10, n_panels=14, n_clouds=8),
+                traj_kwargs=dict(radius=6.0, speed=1.5))
+SEG_ATE_LIMIT_M = 0.45  # tests/test_adversarial.py's bound on the textured world
+# the JAX pipeline's online ATE on the same frames on the CPU, weighting off
+# and "net" (python tests/test_torch_segmentation.py)
+JAX_SEG = dict(off=0.016391158917286278, net=0.01795078901483427)
+SEG_JAX_TOL_M = 1e-3
+SEG_LOGIT_TOL = 1e-4  # FastSCNN on the card against the CPU, float32 without TF32
+SEG_STAGES = ("2.0 PrefetchWait", "2.2 FrontDispatch", "2.3 AssocConsume", "2.5 CollectSolve",
+              "2.9 Marginalise")
+# the trainers phase: each trainer's `main` for TRAIN_STEPS steps at its
+# default image size from a pool of TRAIN_POOL; the vocabulary from VOCAB_N
+# descriptors; one step's loss and gradients on the card against the CPU's
+TRAIN_STEPS = 10
+TRAIN_POOL = dict(segmentation=8, stereo=8, mvs=2)  # the MVS loss is too noisy over 8 in 10 steps
+VOCAB_N = 20000
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3  # of each gradient's largest entry
 # the multi-session phase: session B runs this many frames from a world frame
 # 1.5 m lateral and 0.1 rad of yaw off session A's (tests/test_multisession.py);
 # 12 until the LiDAR phase came
@@ -765,8 +812,13 @@ def check_kernels(dev, card):
     rows = [("matrix", shape, None) for shape in TIMED]
     rows += [("match", shape, timed_forms[shape]) for shape in TIMED]
     rows.append(("match", (704, 4096), "vocabulary leaves, row_seg 704x4096"))
+    # the launch floor: an empty kernel launched as the kernels are (ctypes, the
+    # current stream), one of GRAPH_LAUNCHES in a CUDA graph
+    floor = lambda: hamming.empty_launch(dev)  # noqa: E731
+    t_floor = min(device_ms(floor), device_ms(floor))
     print(f"times in ms on {card}; device = one of {GRAPH_LAUNCHES} launches in a CUDA graph, "
-          "call = a Python call, share = bound / device")
+          "call = a Python call, share = bound / device, floor = an empty kernel's device time "
+          f"launched the same way: {t_floor:.5f}")
     for kind, (nq, nd), form in rows:
         if kind == "matrix":
             q = torch.from_numpy(random_words(rng, nq)).to(dev)
@@ -794,10 +846,11 @@ def check_kernels(dev, card):
         t_call = min(t_call, time_ms(run, 200))
         t_bound, by = bound(n_bytes, n_popc, rate)
         print(f"{label}: device {t_dev:.5f}, call {t_call:.5f}, plain {t_plain:.4f}, library "
-              f"{t_lib:.5f}, bound {t_bound:.5f} ({by}), share {100 * t_bound / t_dev:.1f}%")
+              f"{t_lib:.5f}, bound {t_bound:.5f} ({by}), floor {t_floor:.5f}, share "
+              f"{100 * t_bound / t_dev:.1f}%")
         if (nq, nd) == (704, 1024):  # the shape of the `kernels` line
             entries[kind] = dict(ms=t_call, device_ms=t_dev, plain_ms=t_plain, bound_ms=t_bound,
-                                 bound_by=by, library_ms=t_lib)
+                                 bound_by=by, library_ms=t_lib, launch_floor_ms=t_floor)
     entries["matrix"]["max_abs_err"] = matrix_err
     entries["match"]["max_abs_err"] = match_err
     return entries
@@ -875,6 +928,16 @@ def render(n_frames, **traj_kwargs):
     )
     if len(seq.frame_t) < n_frames:
         raise RuntimeError(f"rendered {len(seq.frame_t)} frames, need {n_frames}")
+    return seq
+
+
+def seg_sequence():
+    """The segmentation phase's frames, with cam0's class maps."""
+    from okvis2x_tpu_torch.io import synthetic
+
+    seq = synthetic.render_sequence(**SEG_DATA, with_classmap=True)
+    if len(seq.frame_t) != SEG_FRAMES:
+        raise RuntimeError(f"rendered {len(seq.frame_t)} frames, need {SEG_FRAMES}")
     return seq
 
 
@@ -3432,6 +3495,244 @@ def drifted_circle(K, rng, radius=5.0):
             np.stack(gt))
 
 
+def record_weights(vio, out):
+    """Keep (uv, valid, w) of every camera of every consumed frame of the
+    deferred frontend in `out`, in frame order."""
+    consume = vio.frontend_consume
+
+    def run(h, crit):
+        frame_data, counts = consume(h, crit)
+        out.append([(fd.uv, fd.valid, fd.w) for fd in frame_data])
+        return frame_data, counts
+
+    vio.frontend_consume = run
+
+
+def segmentation_phase(dev, card, seq):
+    """The flagship configuration on the textured world (`seq`,
+    seg_sequence()) with the semantic weighting off and "net": ATEs, the
+    fourth column, the association's launches; FastSCNN on the card against
+    the CPU on frame 0 and its time.  Returns the fused kernel's launches by
+    site."""
+    import torch
+    from okvis2x_tpu_torch.io import trajectory_io
+    from okvis2x_tpu_torch.models import segmentation
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.utils import timing
+
+    runs, all_sites = {}, {}
+    for mode in ("off", "net"):
+        hamming.reset_launch_counts()
+        timing.reset()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        rec = []
+        t0 = time.perf_counter()
+        vio, infos, wall, _, _, _ = run_pipeline(
+            seq, dev, SEG_FRAMES, record_times=True, est_kw=FLAGSHIP_EST,
+            pipe_kw=FLAGSHIP_PIPE | dict(segmentation=mode), wrap=lambda v: record_weights(v, rec))
+        t_run = time.perf_counter() - t0
+        sites = dict(hamming.hamming_match.site_launches)
+        peak = peak_text(dev)
+        ts, Ts = check_positions(vio, SEG_FRAMES, f"segmentation {mode}")
+        ate = float(trajectory_io.ate_rmse(ts, Ts[:, :3], seq.gt[:, 0], seq.gt[:, 1:4]))
+        if dev.type == "cuda" and sites.get("assoc", 0) != 4 * SEG_FRAMES:
+            raise RuntimeError(f"segmentation {mode}: the association launched the fused "
+                               f"kernel {sites} times over {SEG_FRAMES} frames")
+        if not ate <= SEG_ATE_LIMIT_M:
+            raise RuntimeError(f"segmentation {mode}: ATE {ate} m exceeds {SEG_ATE_LIMIT_M} m")
+        if len(rec) != SEG_FRAMES:
+            raise RuntimeError(f"segmentation {mode}: {len(rec)} frames consumed")
+        for k, n in sites.items():
+            all_sites[k] = all_sites.get(k, 0) + n
+        ms = np.asarray(wall) * 1e3
+        runs[mode] = dict(ate=ate, rec=rec, vio=vio)
+        print(f"segmentation {mode}: {SEG_FRAMES} frames in {t_run:.1f} s, online ATE {ate:.4f} m, "
+              f"ms/frame p50 {np.percentile(ms, 50):.1f} p90 {np.percentile(ms, 90):.1f} max "
+              f"{ms.max():.1f}, peak allocated {peak}, fused launches {sites}; stage means ms: "
+              + ", ".join(f"{k} {timing.mean_ms(k):.2f}" for k in SEG_STAGES) + f" ({card})")
+    ERRORS.check("segmentation phase")
+
+    # the fourth column: the class weights of every keypoint of the "net" run
+    w_off = [w for frame in runs["off"]["rec"] for _, _, w in frame]
+    if any(w is not None for w in w_off):
+        raise RuntimeError("segmentation off: the frames carry weights")
+    ws = [(w, valid) for frame in runs["net"]["rec"] for _, valid, w in frame]
+    if any(w is None for w, _ in ws):
+        raise RuntimeError("segmentation net: a frame without weights")
+    vals = np.concatenate([w[v] for w, v in ws])
+    if not set(np.unique(vals)) <= {1.0, 3.0, 5.0} or not (vals > 1).any():
+        raise RuntimeError(f"segmentation net: weights {np.unique(vals)}, none above 1 or "
+                           "outside {1, 3, 5}")
+    down = np.concatenate([w[v] > 1 for (w, v) in ws[::2]])  # cam0
+    on_cls = np.concatenate([
+        seq.classmaps[k][np.clip(np.round(uv[v, 1]).astype(int), 0, seq.classmaps.shape[1] - 1),
+                         np.clip(np.round(uv[v, 0]).astype(int), 0, seq.classmaps.shape[2] - 1)]
+        for k, frame in enumerate(runs["net"]["rec"]) for uv, v, _ in frame[:1]])
+    print(f"segmentation net: {len(vals)} keypoints, weights 1/3/5: {int((vals == 1).sum())}/"
+          f"{int((vals == 3).sum())}/{int((vals == 5).sum())}; cam0 keypoints on the renderer's "
+          f"sky / distractor pixels {int((on_cls == 1).sum())} / {int((on_cls == 2).sum())}, "
+          f"downweighted there {int(down[on_cls == 1].sum())} / {int(down[on_cls == 2].sum())}, "
+          f"on static pixels {int(down[on_cls == 0].sum())} of {int((on_cls == 0).sum())}")
+
+    # the accuracy: the JAX bounds, then the JAX pipeline's own ATE
+    ate_off, ate_net = runs["off"]["ate"], runs["net"]["ate"]
+    if not ate_net <= 1.15 * ate_off + 0.02:
+        raise RuntimeError(f"segmentation hurt: ATE {ate_net} m against {ate_off} m off")
+    gap = abs(ate_net - JAX_SEG["net"])
+    print(f"segmentation ATE off {ate_off:.4f} m, net {ate_net:.4f} m; the JAX pipeline on the "
+          f"CPU {JAX_SEG['off']:.4f} / {JAX_SEG['net']:.4f} m, net gap {gap:.2e} m")
+    if not gap <= SEG_JAX_TOL_M:
+        raise RuntimeError(f"segmentation net: ATE {ate_net} m, the JAX pipeline's "
+                           f"{JAX_SEG['net']} m")
+
+    # FastSCNN on the card against the CPU on frame 0 (both cameras, padded
+    # as the fused frontend pads them), and its time
+    vio = runs["net"]["vio"]
+    imgs = torch.from_numpy(vio._pack_images(list(seq.images[0]))).to(torch.float32) / 255.0
+    net_card = segmentation.trained_net(str(dev))[0]
+    net_cpu = segmentation.trained_net("cpu")[0]
+    with torch.no_grad():
+        got = net_card(imgs.to(dev)).cpu()
+        ref = net_cpu(imgs)
+        err = float((got - ref).abs().max())
+        t_net = (f"{time_ms(lambda: net_card(imgs.to(dev)), 20):.3f} ms a frame (CUDA events)"
+                 if dev.type == "cuda" else "time not measured")
+    if not err <= SEG_LOGIT_TOL:
+        raise RuntimeError(f"FastSCNN: card and CPU logits differ by {err}")
+    n_kp = n_clear = 0
+    for c, (uv, valid, _) in enumerate(runs["net"]["rec"][0]):
+        uv_t = torch.from_numpy(uv[valid]).to(torch.float32)
+        x, y = segmentation.nearest_pixels(uv_t, *ref.shape[1:3])
+        top2 = ref[c][y, x].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * SEG_LOGIT_TOL
+        same = segmentation.sample_classes(got[c], uv_t) == segmentation.sample_classes(ref[c],
+                                                                                        uv_t)
+        if not bool(same[clear].all()):
+            raise RuntimeError(f"FastSCNN: camera {c}'s classes differ on the card")
+        n_kp, n_clear = n_kp + len(uv_t), n_clear + int(clear.sum())
+    print(f"FastSCNN 2x{tuple(imgs.shape[1:])}: card vs CPU logits max |diff| {err:.2e} "
+          f"(tolerance {SEG_LOGIT_TOL}), classes equal at {n_clear} of {n_kp} frame-0 keypoints "
+          f"(the rest within 2x the tolerance of a tie); {t_net} ({card})")
+    del runs, vio
+    return all_sites
+
+
+def trainer_batch(name, rng):
+    """A batch at the trainer's default size and batch from a pool of 4 (2
+    for stereo and MVS), as numpy arrays, and the trainer's module."""
+    from okvis2x_tpu_torch.tools import train_mvs, train_segmentation, train_stereo
+
+    if name == "segmentation":
+        ims, cs = train_segmentation.make_pool(train_segmentation.camera(240, 376), rng, 4)
+        img, lab = train_segmentation.draw_batch(rng, ims, cs, 4)
+        return train_segmentation, (img, lab, train_segmentation.class_weights())
+    cam = train_stereo.camera(192, 256)
+    if name == "stereo":
+        pool = train_stereo.make_pool(cam, rng, train_stereo.make_scenes(rng), 2)
+        return train_stereo, train_stereo.draw_batch(rng, pool, 4)
+    pool = train_mvs.make_pool(cam, rng, train_mvs.make_scenes(rng), 2, 2)
+    return train_mvs, train_mvs.draw_batch(rng, pool, 2, 0.06)
+
+
+def cpu_vocabulary(desc):
+    """The 64x64 vocabulary tree of packed descriptors `desc` ((n, 12) int32
+    numpy) trained on the CPU, and the descriptors' words: (branches, leaves,
+    words, seconds)."""
+    import torch
+    from okvis2x_tpu_torch.frontend import bow
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    d = torch.from_numpy(desc)
+    vocab = bow.train_vocabulary_hier(d, branch=64, leaf=64, iters=8)
+    words = bow.assign_packed(d, None, vocab)
+    return (vocab.branches.numpy(), vocab.leaves.numpy(), words.numpy(),
+            time.perf_counter() - t0)
+
+
+def trainers_phase(dev, card, pool):
+    """The vocabulary trainer on VOCAB_N descriptors, its tree against the
+    CPU's (trained meanwhile in `pool`); each net trainer's `main` on the
+    card (TRAIN_STEPS steps, a pool of TRAIN_POOL at its default size), its
+    artifact loaded back, one step's loss and gradients against the CPU's.
+    Returns the fused kernel's launches by site."""
+    import copy
+    import os
+
+    import torch
+    from okvis2x_tpu_torch import optim
+    from okvis2x_tpu_torch.frontend import bow
+    from okvis2x_tpu_torch.models import mvs_net, segmentation, stereo_net
+    from okvis2x_tpu_torch.ops import hamming
+    from okvis2x_tpu_torch.tools import train_vocab
+
+    root = os.path.join("build", "trainers_phase")
+    os.makedirs(root, exist_ok=True)
+    on_cpu = [] if dev.type == "cuda" else ["--device", str(dev)]  # the trainers' default: cuda:0
+
+    hamming.reset_launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    vocab_out = os.path.join(root, "vocab.npz")
+    voc = train_vocab.main(["--n", str(VOCAB_N), "--out", vocab_out] + on_cpu)
+    sites = dict(hamming.hamming_match.site_launches)
+    vocab_peak = peak_text(dev)
+    cpu_tree = pool.submit(cpu_vocabulary, voc["desc"].cpu().numpy())
+
+    for name in ("segmentation", "stereo", "mvs"):
+        mod, batch = trainer_batch(name, np.random.default_rng(1))
+        out = os.path.join(root, f"{name}.npz")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = mod.main(["--steps", str(TRAIN_STEPS), "--pool", str(TRAIN_POOL[name]), "--out", out]
+                       + on_cpu)
+        t_main = time.perf_counter() - t0
+        peak = peak_text(dev)
+        losses = np.asarray(res["losses"])
+        if not np.isfinite(losses).all() or not losses[:3].mean() > losses[-3:].mean():
+            raise RuntimeError(f"train_{name}: losses {losses.tolist()} do not fall")
+        if name == "segmentation":
+            state, _ = segmentation.load_params(out)
+            segmentation.FastSCNN().to(dev).load_state_dict(state)
+        elif (stereo_net.trained(out, 64, str(dev)) if name == "stereo"
+              else mvs_net.trained(out, str(dev))) is None:
+            raise RuntimeError(f"train_{name}: {out} does not load")
+        # one step from the same initial weights and batch on the card and the CPU
+        net = mod.new_net()
+        cpu_loss, cpu_grads = optim.loss_and_grads(net, mod.loss, *map(torch.from_numpy, batch))
+        gpu_loss, gpu_grads = optim.loss_and_grads(
+            copy.deepcopy(net).to(dev), mod.loss, *(torch.from_numpy(x).to(dev) for x in batch))
+        loss_err = abs(float(gpu_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        grad_err = max(float((gpu_grads[k].cpu() - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                       for k, g in cpu_grads.items())
+        if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL):
+            raise RuntimeError(f"train_{name}: the card's step differs from the CPU's: loss "
+                               f"{loss_err:.2e} relative, gradients {grad_err:.2e}")
+        step_s = np.asarray(res["step_s"][1:])
+        print(f"train_{name}: {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"{np.median(step_s):.4f} s a step (median after the first; first "
+              f"{res['step_s'][0]:.3f} s), main {t_main:.1f} s, peak allocated {peak}; "
+              f"one step card vs CPU: loss {loss_err:.1e} relative, gradients {grad_err:.1e} of "
+              f"their largest entry ({card})")
+    ERRORS.check("trainers phase")
+
+    branches, leaves, cpu_words, t_cpu = cpu_tree.result()
+    loaded = bow.HierVocabulary.load(vocab_out, device=dev)
+    for what, a, b in (("branches", voc["vocab"].branches, branches),
+                       ("leaves", voc["vocab"].leaves, leaves),
+                       ("the file", loaded.leaves, leaves),
+                       ("assignments", voc["words"], cpu_words)):
+        if not np.array_equal(a.cpu().numpy(), b):
+            raise RuntimeError(f"train_vocab: {what} on the card differ from the CPU's")
+    print(f"train_vocab: {VOCAB_N} descriptors collected in {voc['collect_s']:.1f} s, the "
+          f"64x64 tree trained in {voc['train_s']:.1f} s on the card ({t_cpu:.1f} s on the CPU "
+          f"in the background process, equal), {len(np.unique(cpu_words))} words used, peak "
+          f"allocated {vocab_peak}, fused launches {sites} ({card})")
+    return sites
+
+
 def pcg_phase(dev, card, cpu_solves):
     """The matrix-free PCG pose-graph solver at 300 and 1000 nodes on the
     card, against the CPU's solves (`cpu_solves`, a future of
@@ -3502,6 +3803,7 @@ def main() -> int:
         cpu_flagship = pool.submit(flagship_cpu_positions)
         cpu_solves = pool.submit(pcg_cpu_solves)
         cpu_drift = pool.submit(drift_cpu_poses)
+        seg_seq = pool.submit(seg_sequence)
         t0 = time.perf_counter()
         match_sites, phase_sites = {}, {}
 
@@ -3562,10 +3864,16 @@ def main() -> int:
         t0 = time.perf_counter()
         pcg_phase(dev, card, cpu_solves)
         print(f"PCG phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add_sites(segmentation_phase(dev, card, seg_seq.result()), "segmentation")
+        print(f"segmentation phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add_sites(trainers_phase(dev, card, pool), "trainers")
+        print(f"trainers phase: {time.perf_counter() - t0:.1f} s")
 
     # times at 704x1024, the map matching's shape; launches over phases 4-9,
-    # the app, bag-replay, live-nodes, GNSS, RGB-D, depth-mode, fine-grid and
-    # LiDAR phases
+    # the app, bag-replay, live-nodes, GNSS, RGB-D, depth-mode, fine-grid,
+    # LiDAR, segmentation and trainers phases
     print(json.dumps({"kernels": [
         {"name": "hamming_match", "route": "cuda",
          "source": "okvis2x_tpu_torch/csrc/hamming_match.cu",

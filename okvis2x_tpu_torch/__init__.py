@@ -64,7 +64,9 @@ ROS1 and ROS2 bags replayed through the node graph of ``apps/okvis2x_node.py``
 over the in-process transport of ``ros2/``); the live rclpy nodes, the network
 node with census stereo depth in the loop and the realsense publisher; the
 native frame prefetcher and queue (``io/native_loader.py``), the asynchronous
-submapping runner and the bag tools (``tools/``).  Semantic weighting and the
+submapping runner and the bag tools (``tools/``); semantic keypoint
+weighting (FastSCNN in the deferred fused frontend, the textured world) and
+the trainers of the nets and the vocabulary (``tools/train_*.py``).  The
 multi-device ``parallel/`` solvers are not ported yet.
 
 The entry points run on the first CUDA device unless the caller names

@@ -278,6 +278,32 @@ def stereo_net_params(params) -> dict:
 
 
 mvs_net_params = stereo_net_params
+fast_scnn_params = stereo_net_params
+
+
+def flax_flat(state_dict) -> dict:
+    """Inverse of `stereo_net_params` for the stereo, MVS and segmentation
+    nets: a ``state_dict`` -> the flat flax paths of the JAX package's npz
+    artifacts ('params/Conv_0/kernel', ...), float32 numpy arrays; conv
+    weights (out, in, kh, kw) -> (kh, kw, in, out), dense (out, in) -> (in,
+    out)."""
+    out = {}
+    for key, v in state_dict.items():
+        parts = key.split(".")
+        a = v.detach().cpu().to(torch.float32).numpy()
+        if parts[-1] == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            parts[-1] = "kernel"
+        out["/".join(["params", *parts])] = np.ascontiguousarray(a)
+    return out
+
+
+def save_artifact(path, state_dict, **meta) -> None:
+    """Write a net's weights and its meta {name: float} as the flat npz that
+    the JAX package's `load_params` (and the port's) read: the flax paths and
+    one ``__meta_<name>`` scalar each."""
+    np.savez_compressed(path, **{f"__meta_{k}": np.float64(v) for k, v in meta.items()},
+                        **flax_flat(state_dict))
 
 
 def to_numpy(x):

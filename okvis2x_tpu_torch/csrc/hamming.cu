@@ -103,6 +103,16 @@ extern "C" int okvis_hamming_i32(const void* q, const void* d, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// An empty kernel, launched as the kernels above are (ctypes, the caller's
+// stream): what a launch costs before any work, the floor under every
+// kernel's time.
+__global__ void empty_kernel() {}
+
+extern "C" int okvis_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" const char* okvis_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

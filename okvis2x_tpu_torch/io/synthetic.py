@@ -1,17 +1,20 @@
 """Synthetic stereo-inertial datasets (numpy).
 
-Counterpart of the dot-field part of ``okvis2x_tpu/io/synthetic.py``: the
-same analytic trajectories, scenes, splat renderer and IMU noise.
-`render_sequence` yields in memory exactly the IMU samples, ground truth and
-uint8 stereo images that `generate` writes in the EuRoC layout (PNGs by the
-port's codec), and `generate` writes what ``okvis2x_tpu.io.synthetic.
-generate`` writes for the same arguments.  The textured world and its class
-maps wait for the segmentation item (A4 in ROADMAP.md).
+Counterpart of ``okvis2x_tpu/io/synthetic.py``: the same analytic
+trajectories, the dot-field scenes and splat renderer, the textured world
+(procedural panels with occlusion, a drifting cloud sky, moving distractor
+clusters, illumination drift) with its per-pixel class maps, and the same IMU
+noise.  `render_sequence` yields in memory exactly the IMU samples, ground
+truth, uint8 stereo images and cam0 class maps that `generate` writes in the
+EuRoC layout (PNGs by the port's codec, class maps under ``seg0/``), and
+`generate` writes what ``okvis2x_tpu.io.synthetic.generate`` writes for the
+same arguments.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -160,6 +163,244 @@ def make_circuit_scene(radius=8.0, density=22.0, seed=3, z_lo=3.5, z_hi=6.5,
     return pts, brightness, rad
 
 
+# ---------------------------------------------------------------------------
+# The textured world: texture on continuous surfaces, occlusion, a bright
+# drifting sky, moving distractors and lighting drift, with a per-pixel class
+# map (static / sky / distractor) that supervises the keypoint classifier.
+# ---------------------------------------------------------------------------
+
+CLASS_STATIC = 0
+CLASS_SKY = 1
+CLASS_DISTRACTOR = 2
+
+
+def _hash01(i, j, seed):
+    """Deterministic [0, 1) lattice hash (vectorised)."""
+    x = np.sin(i * 127.1 + j * 311.7 + seed * 74.7) * 43758.5453
+    return x - np.floor(x)
+
+
+def _value_noise(u, v, seed, octaves=3, base_scale=1.6):
+    """Multi-octave bilinear value noise at plane-local coords (u, v)."""
+    out = np.zeros_like(u)
+    amp = 1.0
+    tot = 0.0
+    s = base_scale
+    for o in range(octaves):
+        uu, vv = u * s, v * s
+        i0, j0 = np.floor(uu), np.floor(vv)
+        fu, fv = uu - i0, vv - j0
+        fu = fu * fu * (3 - 2 * fu)
+        fv = fv * fv * (3 - 2 * fv)
+        n00 = _hash01(i0, j0, seed + o)
+        n10 = _hash01(i0 + 1, j0, seed + o)
+        n01 = _hash01(i0, j0 + 1, seed + o)
+        n11 = _hash01(i0 + 1, j0 + 1, seed + o)
+        out = out + amp * (
+            n00 * (1 - fu) * (1 - fv) + n10 * fu * (1 - fv)
+            + n01 * (1 - fu) * fv + n11 * fu * fv
+        )
+        tot += amp
+        amp *= 0.55
+        s *= 2.1
+    return out / tot
+
+
+def make_textured_world(radius=8.0, seed=3, density=14.0, n_panels=16,
+                        n_distractors=5, n_clouds=7, half_width=4.5,
+                        z_lo=3.5, z_hi=6.5):
+    """World for the circuit trajectory: a dot ceiling, textured ceiling
+    panels, moving distractor clusters and drifting clouds; a dict that
+    `render_textured` takes."""
+    rng = np.random.default_rng(seed)
+    pts, bright, rad = make_circuit_scene(
+        radius=radius, density=density, seed=seed, z_lo=z_lo, z_hi=z_hi,
+        half_width=half_width, sectors=6)
+
+    panels = []
+    for k in range(n_panels):
+        th = 2 * np.pi * k / n_panels + rng.uniform(-0.15, 0.15)
+        rr = rng.uniform(radius - 2.5, radius + 2.5)
+        origin = np.array([rr * np.cos(th), rr * np.sin(th), rng.uniform(z_lo - 0.6, z_hi)])
+        # ceiling-facing panels, tilted a little
+        n_vec = np.array([rng.uniform(-0.25, 0.25), rng.uniform(-0.25, 0.25), -1.0])
+        n_vec /= np.linalg.norm(n_vec)
+        eu = np.cross(n_vec, [0.0, 0.0, 1.0])
+        if np.linalg.norm(eu) < 1e-6:
+            eu = np.array([1.0, 0.0, 0.0])
+        eu /= np.linalg.norm(eu)
+        ev = np.cross(n_vec, eu)
+        panels.append(dict(
+            origin=origin, normal=n_vec, eu=eu, ev=ev,
+            half_u=rng.uniform(1.2, 2.6), half_v=rng.uniform(1.0, 2.2),
+            tex_seed=float(k * 13 + seed), albedo=rng.uniform(0.45, 0.85),
+        ))
+
+    distractors = []
+    for k in range(n_distractors):
+        th = rng.uniform(0, 2 * np.pi)
+        rr = rng.uniform(radius - 2.0, radius + 2.0)
+        m = rng.integers(6, 14)
+        local = rng.uniform(-0.5, 0.5, (m, 3)) * np.array([1.0, 1.0, 0.3])
+        distractors.append(dict(
+            center0=np.array([rr * np.cos(th), rr * np.sin(th),
+                              rng.uniform(z_lo - 1.0, z_lo + 0.5)]),
+            # a slow wander of 1-2 m over tens of seconds: consistent from
+            # frame to frame, wrong geometrically
+            amp=rng.uniform(0.8, 2.0, 3) * np.array([1, 1, 0.3]),
+            omega=rng.uniform(0.05, 0.16, 3) * 2 * np.pi,
+            phase=rng.uniform(0, 2 * np.pi, 3),
+            pts_local=local,
+            bright=rng.uniform(0.5, 1.0, m),
+            rad=rng.uniform(1.0, 2.0, m),
+        ))
+
+    clouds = []
+    for k in range(n_clouds):
+        d = rng.normal(0, 1, 3)
+        d[2] = abs(d[2]) + 1.0  # up
+        clouds.append(dict(
+            dir0=d / np.linalg.norm(d),
+            drift=rng.uniform(-0.012, 0.012, 3),  # direction drift [1/s]
+            width=rng.uniform(0.08, 0.2),
+            gain=rng.uniform(0.12, 0.3),
+        ))
+    return dict(pts=pts, bright=bright, rad=rad, panels=panels,
+                distractors=distractors, clouds=clouds, seed=seed)
+
+
+@functools.lru_cache(maxsize=4)
+def _rays(width, height, model, fxfycxcy, dist_params):
+    cam = pinhole_np.NpCamera(fxfycxcy=np.array(fxfycxcy), dist_params=np.array(dist_params),
+                              width=width, height=height, model=model)
+    ys, xs = np.mgrid[0:height, 0:width]
+    uv = np.stack([xs, ys], axis=-1).reshape(-1, 2).astype(np.float64)
+    ray, _ = pinhole_np.back_project(cam, uv)
+    ray = ray / np.linalg.norm(ray, axis=-1, keepdims=True)
+    ray = ray.reshape(height, width, 3)
+    ray.flags.writeable = False
+    return ray
+
+
+def _pixel_rays(cam_np):
+    """(H, W, 3) unit ray of every pixel in the camera frame (undistorted),
+    kept for the last few cameras."""
+    return _rays(cam_np.width, cam_np.height, cam_np.model,
+                 tuple(np.asarray(cam_np.fxfycxcy).tolist()),
+                 tuple(np.asarray(cam_np.dist_params).tolist()))
+
+
+def distractor_positions(world, t):
+    """World-frame positions of every distractor dot at time t: (pts (n, 3),
+    bright (n,), rad (n,))."""
+    ps, bs, rs = [], [], []
+    for d in world["distractors"]:
+        c = d["center0"] + d["amp"] * np.sin(d["omega"] * t + d["phase"])
+        ps.append(c[None] + d["pts_local"])
+        bs.append(d["bright"])
+        rs.append(d["rad"])
+    if not ps:
+        return np.zeros((0, 3)), np.zeros(0), np.zeros(0)
+    return np.concatenate(ps), np.concatenate(bs), np.concatenate(rs)
+
+
+def _splat(img, cls, cam_np, T_WC, pts, bright, rad, cls_id, zbuf=None):
+    """Splat dots into `img` (and their class into `cls` where a splat is
+    brighter than 0.15), hidden where `zbuf` (the panels' depths) is nearer
+    at the dot's centre pixel."""
+    H, W = cam_np.height, cam_np.width
+    if len(pts) == 0:
+        return
+    T_CW = se3np.se3_inverse(np.asarray(T_WC, np.float64))
+    p_C = se3np.se3_apply(T_CW, np.asarray(pts, np.float64))
+    uv, valid = pinhole_np.project(cam_np, p_C)
+    valid = valid & (p_C[:, 2] > 0.3)
+    r = 4
+    cx = np.round(uv[:, 0]).astype(np.int64)
+    cy = np.round(uv[:, 1]).astype(np.int64)
+    sel = np.nonzero(valid & (cx >= r) & (cx < W - r) & (cy >= r) & (cy < H - r))[0]
+    if zbuf is not None and len(sel):
+        sel = sel[p_C[sel, 2] < zbuf[cy[sel], cx[sel]] + 0.05]
+    if len(sel) == 0:
+        return
+    d = np.arange(-r, r + 1)
+    sig = (np.asarray(rad)[sel] * 0.8)[:, None]
+    ys = cy[sel, None] + d
+    xs = cx[sel, None] + d
+    gy = np.exp(-0.5 * ((ys - uv[sel, 1:2]) / sig) ** 2)
+    gx = np.exp(-0.5 * ((xs - uv[sel, 0:1]) / sig) ** 2)
+    patch = (np.asarray(bright)[sel, None, None]
+             * gy[:, :, None] * gx[:, None, :]).astype(np.float32)
+    flat = (ys[:, :, None] * W + xs[:, None, :]).ravel()
+    np.add.at(img.reshape(-1), flat, patch.ravel())
+    if cls is not None:
+        strong = patch.ravel() > 0.15
+        cls.reshape(-1)[flat[strong]] = cls_id
+
+
+def render_textured(cam, T_WC, world, t, noise=0.01, seed=0, with_classes=False):
+    """Render the textured world at time t: img (H, W) float32 in [0, 1], or
+    (img, classmap) with `with_classes` (uint8 CLASS_*)."""
+    cam_np = cam if isinstance(cam, pinhole_np.NpCamera) else pinhole_np.to_numpy(cam)
+    rng = np.random.default_rng(seed)
+    H, W = cam_np.height, cam_np.width
+    rays_C = _pixel_rays(cam_np)
+    T_WC = np.asarray(T_WC, np.float64)
+    R_WC = se3np.quat_to_matrix(T_WC[3:7])
+    o_W = T_WC[:3]
+    dir_W = rays_C @ R_WC.T  # (H, W, 3)
+
+    # sky: a smooth gradient and drifting clouds, bright and of low
+    # frequency; their edges are detectable and move
+    img = (0.55 + 0.18 * dir_W[..., 2]).astype(np.float32)
+    for c in world["clouds"]:
+        d0 = c["dir0"] + c["drift"] * t
+        d0 = d0 / np.linalg.norm(d0)
+        ang2 = np.sum((dir_W - d0) ** 2, axis=-1)
+        img += (c["gain"] * np.exp(-0.5 * ang2 / c["width"] ** 2)).astype(np.float32)
+    cls = np.full((H, W), CLASS_SKY, np.uint8) if with_classes else None
+    zbuf = np.full((H, W), np.inf, np.float32)
+
+    # textured panels with a z-buffer
+    for p in world["panels"]:
+        denom = dir_W @ p["normal"]
+        tt = ((p["origin"] - o_W) @ p["normal"]) / np.where(np.abs(denom) > 1e-6, denom, 1e-6)
+        hit = (np.abs(denom) > 1e-6) & (tt > 0.3) & (tt < 60.0)
+        P = o_W + dir_W * tt[..., None]
+        rel = P - p["origin"]
+        u = rel @ p["eu"]
+        v = rel @ p["ev"]
+        inside = hit & (np.abs(u) < p["half_u"]) & (np.abs(v) < p["half_v"])
+        nearer = inside & (tt < zbuf)
+        if not nearer.any():
+            continue
+        uu, vv = u[nearer], v[nearer]
+        tex = _value_noise(uu, vv, p["tex_seed"])
+        shade = p["albedo"] * (0.35 + 0.85 * tex)
+        # a soft vignette keeps the panel borders from being perfect lines
+        edge = 1.0 - 0.5 * np.maximum(np.abs(uu) / p["half_u"], np.abs(vv) / p["half_v"]) ** 6
+        img[nearer] = (shade * edge).astype(np.float32)
+        zbuf[nearer] = tt[nearer].astype(np.float32)
+        if cls is not None:
+            cls[nearer] = CLASS_STATIC
+
+    # static dots, then the moving distractors, both behind the panels
+    _splat(img, cls, cam_np, T_WC, world["pts"], world["bright"], world["rad"], CLASS_STATIC,
+           zbuf=zbuf)
+    dp, db, dr = distractor_positions(world, t)
+    _splat(img, cls, cam_np, T_WC, dp, db, dr, CLASS_DISTRACTOR, zbuf=zbuf)
+
+    # illumination drift (a slow global gain and bias) and sensor noise
+    gain = 1.0 + 0.14 * np.sin(2 * np.pi * 0.013 * t + 0.8)
+    bias = 0.03 * np.sin(2 * np.pi * 0.021 * t)
+    img = img * gain + bias
+    img = img + rng.normal(0.0, noise, img.shape).astype(np.float32)
+    img = np.clip(img, 0.0, 1.0).astype(np.float32)
+    if with_classes:
+        return img, cls
+    return img
+
+
 def render_image(cam, T_WC, pts, brightness, radius, noise=0.01, seed=0):
     """Splat scene dots into an image (vectorised numpy; gaussian blobs +
     noise).  Uses the numpy camera twin — no device round-trips, so long
@@ -209,6 +450,7 @@ class Sequence:
     frame_t: np.ndarray  # (F,)
     images: np.ndarray  # (F, 2, H, W) uint8
     gt: np.ndarray  # (F, 8) [t, p(3), q_xyzw(4)], t as frame_t
+    classmaps: np.ndarray | None = None  # (F, H, W) uint8 CLASS_* of cam0
 
     def events(self):
         """Yield ('imu', (t, gyr, acc)) and ('frames', (t, [img0, img1]))
@@ -246,10 +488,11 @@ def render_depth(cam, T_WC, pts, r: int = 4):
 class _Scene:
     """What one set of generator arguments fixes: camera, trajectory,
     extrinsics, IMU stream (noise drawn from `rng`, which the GPS noise
-    continues) and the dots."""
+    continues), the dots and, for world "textured", the textured world."""
 
     def __init__(self, duration, frame_rate, imu_rate, width, height, baseline, imu_noise,
-                 n_points, seed, trajectory, fx, density, scene_version, traj_kwargs):
+                 n_points, seed, trajectory, fx, density, scene_version, traj_kwargs,
+                 world="dots", world_kwargs=None):
         self.imu = ImuParams()
         self.rng = np.random.default_rng(seed + 1)
         self.camera = dict(fx=fx, fy=fx, cx=width / 2, cy=height / 2, width=width,
@@ -277,7 +520,15 @@ class _Scene:
         self.gyr, self.acc = omega_S, f_S
         self.imu_ns = np.array([T0_NS + int(round(t * 1e9)) for t in t_imu], np.int64)
 
-        if trajectory == "circuit":
+        self.world = None
+        if world == "textured":
+            self.world = make_textured_world(radius=tk.get("radius", 8.0), seed=seed,
+                                             density=density, **(world_kwargs or {}))
+            self.pts, self.bright, self.radius = (self.world["pts"], self.world["bright"],
+                                                  self.world["rad"])
+        elif world != "dots":
+            raise ValueError(f"unknown world {world!r}")
+        elif trajectory == "circuit":
             self.pts, self.bright, self.radius = make_circuit_scene(
                 radius=tk.get("radius", 8.0), density=density, seed=seed,
                 sectors=6 if scene_version >= 2 else 0)
@@ -291,11 +542,18 @@ class _Scene:
     def T_WC(self, i, c):
         return se3np.se3_multiply(np.concatenate([self.p[i], self.q[i]]), self.T_SC[c])
 
-    def image(self, i, c):
-        """Frame i of camera c as uint8."""
-        img = render_image(self.cam_np, self.T_WC(i, c), self.pts, self.bright, self.radius,
-                           seed=i * 2 + c)
-        return (img * 255).astype(np.uint8)
+    def image(self, i, c, with_classes=False):
+        """Frame i of camera c as uint8; with `with_classes` (the textured
+        world) also its class map."""
+        if self.world is None:
+            img = render_image(self.cam_np, self.T_WC(i, c), self.pts, self.bright, self.radius,
+                               seed=i * 2 + c)
+            return (img * 255).astype(np.uint8)
+        out = render_textured(self.cam_np, self.T_WC(i, c), self.world, self.t_frames[i],
+                              seed=i * 2 + c, with_classes=with_classes)
+        if with_classes:
+            return (out[0] * 255).astype(np.uint8), out[1]
+        return (out * 255).astype(np.uint8)
 
 
 def render_sequence(
@@ -313,21 +571,32 @@ def render_sequence(
     density: float = 22.0,
     scene_version: int = 2,
     traj_kwargs: dict | None = None,
+    world: str = "dots",
+    world_kwargs: dict | None = None,
+    with_classmap: bool = False,
 ) -> Sequence:
-    """Render the dot-field sequence that `generate` writes for the same
-    arguments (trajectory "sinusoid" or "circuit")."""
+    """Render the sequence that `generate` writes for the same arguments
+    (trajectory "sinusoid" or "circuit", world "dots" or "textured"; with
+    `with_classmap` the textured world's cam0 class maps too)."""
+    if with_classmap and world != "textured":
+        raise ValueError("class maps exist for the textured world only")
     sc = _Scene(duration, frame_rate, imu_rate, width, height, baseline, imu_noise, n_points,
-                seed, trajectory, fx, density, scene_version, traj_kwargs)
+                seed, trajectory, fx, density, scene_version, traj_kwargs, world, world_kwargs)
     images = np.zeros((len(sc.t_frames), 2, height, width), np.uint8)
+    classmaps = np.zeros((len(sc.t_frames), height, width), np.uint8) if with_classmap else None
     for c in range(2):
         for i in range(len(sc.t_frames)):
-            images[i, c] = sc.image(i, c)
+            if with_classmap and c == 0:
+                images[i, c], classmaps[i] = sc.image(i, c, with_classes=True)
+            else:
+                images[i, c] = sc.image(i, c)
     to_s = lambda ns: (ns - T0_NS) * 1e-9  # noqa: E731
     frame_t = to_s(sc.frame_ns)
     return Sequence(
         camera=sc.camera, T_SC=sc.T_SC, imu_ns=sc.imu_ns, imu_t=to_s(sc.imu_ns),
         gyr=sc.gyr, acc=sc.acc, frame_ns=sc.frame_ns, frame_t=frame_t,
         images=images, gt=np.concatenate([frame_t[:, None], sc.p, sc.q], axis=1),
+        classmaps=classmaps,
     )
 
 
@@ -360,12 +629,10 @@ def generate(
     """Write a synthetic stereo-inertial dataset in the EuRoC layout under
     `out_dir`; returns (camera, T_SC (2, 7), ground truth [t, p, q]).  The
     files are those ``okvis2x_tpu.io.synthetic.generate`` writes for the same
-    arguments (PNGs that decode to the same pixels)."""
-    if world != "dots" or with_classmap:
-        raise NotImplementedError("the textured world and its class maps are not ported yet "
-                                  "(the segmentation item, A5 in ROADMAP.md)")
+    arguments (PNGs that decode to the same pixels); with `with_classmap`
+    (world "textured") cam0's class maps go to ``seg0/`` as uint8 PNGs."""
     sc = _Scene(duration, frame_rate, imu_rate, width, height, baseline, imu_noise, n_points,
-                seed, trajectory, fx, density, scene_version, traj_kwargs)
+                seed, trajectory, fx, density, scene_version, traj_kwargs, world, world_kwargs)
     root = os.path.join(out_dir, "mav0")
     os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
     with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
@@ -373,16 +640,30 @@ def generate(
         for ns, g, a in zip(sc.imu_ns, sc.gyr, sc.acc):
             f.write(f"{ns},{g[0]},{g[1]},{g[2]},{a[0]},{a[1]},{a[2]}\n")
 
+    seg_rows = []  # the dot world has no class maps: seg0/ stays empty, as in the JAX package
+    if with_classmap:
+        os.makedirs(os.path.join(root, "seg0", "data"), exist_ok=True)
     for c in range(2):
         os.makedirs(os.path.join(root, f"cam{c}", "data"), exist_ok=True)
         with open(os.path.join(root, f"cam{c}", "data.csv"), "w") as f:
             f.write("#timestamp [ns],filename\n")
             for i, ns in enumerate(sc.frame_ns):
                 name = f"{ns}.png"
-                png.write(os.path.join(root, f"cam{c}", "data", name), sc.image(i, c), level=1)
+                if with_classmap and c == 0 and sc.world is not None:
+                    img, cmap = sc.image(i, c, with_classes=True)
+                    png.write(os.path.join(root, "seg0", "data", name), cmap)
+                    seg_rows.append(f"{ns},{name}\n")
+                else:
+                    img = sc.image(i, c)
+                png.write(os.path.join(root, f"cam{c}", "data", name), img, level=1)
                 f.write(f"{ns},{name}\n")
                 if progress and i % 200 == 0:
                     print(f"  cam{c}: {i}/{len(sc.frame_ns)} frames rendered", flush=True)
+
+    if with_classmap:
+        with open(os.path.join(root, "seg0", "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            f.writelines(seg_rows)
 
     # cam0-registered depth stream (depth0/, 16-bit PNG millimetres)
     if with_depth:

@@ -9,7 +9,7 @@ the weights that ship with the JAX package (``okvis2x_tpu/resources/
 stereo_net.npz``, flat '/'-joined flax paths) load by `state_dict_from_flax`:
 conv kernels (kh, kw, in, out) -> (out, in, kh, kw), dense kernels
 (in, out) -> (out, in).  flax's ``SAME`` padding of a stride-2 3x3 conv pads
-(0, 1) on an even side and (1, 1) on an odd one (`_pad_same`), not the
+(0, 1) on an even side and (1, 1) on an odd one (`pad_same`), not the
 symmetric padding of ``Conv2d(padding=1)``.  The nets compute their
 convolutions and products in full float32 on a card (`full_precision`), as
 the JAX package runs them at ``highest`` precision.
@@ -43,7 +43,7 @@ def full_precision():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+def pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     """flax/XLA ``SAME`` padding of an (N, C, H, W) input for a k x k conv
     of stride s: the total padding split low = total // 2, high the rest."""
     pads = []
@@ -61,7 +61,7 @@ class Conv(nn.Conv2d):
         super().__init__(cin, cout, 3, stride=stride)
 
     def forward(self, x):
-        return F.conv2d(_pad_same(x, 3, self.stride[0]), self.weight.to(x.dtype),
+        return F.conv2d(pad_same(x, 3, self.stride[0]), self.weight.to(x.dtype),
                         self.bias.to(x.dtype), self.stride)
 
 
@@ -160,7 +160,7 @@ def state_dict_from_flax(flat) -> dict:
         parts = [p for p in key.split("/") if p]
         if parts[0] == "params":
             parts = parts[1:]
-        a = np.asarray(v, np.float32)
+        a = np.array(v, np.float32)  # a copy: jax arrays are read-only
         if parts[-1] == "kernel":
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
             parts[-1] = "weight"

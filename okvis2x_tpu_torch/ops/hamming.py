@@ -107,6 +107,8 @@ class _Kernel:
             ptr, ptr, ptr, ptr,  # row_min row_arg col_arg stream
         ]
         lib.okvis_hamming_match.restype = ctypes.c_int
+        lib.okvis_empty_launch.argtypes = [ptr]
+        lib.okvis_empty_launch.restype = ctypes.c_int
         lib.okvis_cuda_error_string.argtypes = [ctypes.c_int]
         lib.okvis_cuda_error_string.restype = ctypes.c_char_p
         return lib
@@ -181,6 +183,18 @@ def hamming_matrix_packed(packed_q: torch.Tensor, packed_d: torch.Tensor,
 
 hamming_matrix_packed.launches = 0
 hamming_matrix_packed.site_launches = {}
+
+
+def empty_launch(device=None):
+    """One launch of an empty kernel on the current stream of `device` (a
+    CUDA device), through the same ctypes path as the two kernels: the launch
+    floor that chip_smoke.py times beside their bounds.  Not counted."""
+    lib = KERNEL.load()
+    with torch.cuda.device(device):
+        err = lib.okvis_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.okvis_cuda_error_string(err).decode()
+        raise RuntimeError(f"empty kernel launch failed: {msg} ({err})")
 
 # hamming_match packs a cell's value and an index into one 32-bit key
 _KEY_VALUE_MAX = 511  # 9 bits; a larger fill is carried as 511 and mapped back

@@ -75,8 +75,14 @@ keypoints left unassigned straight from their depth (`depth_initialize`),
 after the keyframe decision, on the synchronous, pipelined and deferred
 paths alike (the deferred path once the frame's critical block is consumed).
 
-Semantic weighting (also inside the fused frontend) is not part of the port
-yet; enabling it raises ``NotImplementedError``.
+Semantic keypoint weighting (`segmentation` "net" or "heuristic") runs
+inside the deferred fused frontend, as in the JAX package: each camera's
+keypoints get sigma multipliers from the shipped FastSCNN or from the sky
+heuristic (``models/segmentation.py``), which ride the critical block as a
+fourth keypoint column and scale the observation sigmas of the frame.  The
+synchronous and pipelined frontends never compute them (the JAX package's
+`detect_and_describe` does not either, C-R19 in ROADMAP.md), so there the
+option changes nothing.
 """
 
 from __future__ import annotations
@@ -102,6 +108,7 @@ from okvis2x_tpu_torch.graph import component
 from okvis2x_tpu_torch.graph.estimator import EstimatorConfig, SlidingWindowEstimator
 from okvis2x_tpu_torch.graph.fullgraph import FullGraphOptimizer
 from okvis2x_tpu_torch.io import debug_csv
+from okvis2x_tpu_torch.models import segmentation
 from okvis2x_tpu_torch.ops import hamming
 from okvis2x_tpu_torch.utils import timing
 
@@ -171,13 +178,11 @@ class PipelineConfig:
     deferred_frontend: bool = False
     pipeline_depth: int = 1
     pipeline_ramp_frames: int = 25
-    # semantic keypoint weighting: not ported, must stay "off"
+    # semantic keypoint weighting in the deferred fused frontend: "net" runs
+    # the shipped FastSCNN on every camera image and scales each keypoint's
+    # observation sigma by its class weight (sky 5, person 3); any other
+    # value but "off" uses the training-free sky heuristic
     segmentation: str = "off"
-
-    def check_ported(self):
-        if self.segmentation != "off":
-            raise NotImplementedError("semantic keypoint weighting is not ported yet "
-                                      "(neither in the synchronous nor in the fused frontend)")
 
 
 # stereo / motion-stereo initialisations accepted per frame (the first
@@ -197,6 +202,9 @@ class FrameData:
         self.packed = packed  # (N, 12) int32, or None while in flight
         self.lid = np.full(uv.shape[0], -1, np.int64)  # landmark assignment
         self.desc_todo: list = []
+        # per-keypoint sigma multipliers of the fused frontend's semantic
+        # weighting; None: all 1
+        self.w = None
 
 
 # the association's outputs, in the order of the critical block
@@ -230,9 +238,11 @@ class VioPipeline:
         """`device` None is the first CUDA device; without one this raises
         (pass device="cpu" to run on the CPU)."""
         cfg = cfg or PipelineConfig()
-        cfg.check_ported()
         self.cfg = cfg
         self.device = default_device() if device is None else torch.device(device)
+        if cfg.segmentation == "net":
+            # the weights go to the device here, not inside a dispatch
+            segmentation.trained_net(self.device)
         dtype = est_config.dtype
         self.cameras = [c.to(self.device, dtype) for c in cameras]
         self.np_cameras = [pinhole_np.to_numpy(c) for c in cameras]
@@ -399,6 +409,14 @@ class VioPipeline:
             uv.append(kp.uv)
             valid.append(kp.valid)
         return torch.stack(uv), torch.stack(valid), torch.stack(packed)
+
+    def _keypoint_weights(self, imgs_d: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+        """(C, N) float32 sigma multipliers of the keypoints uv (C, N, 2) of
+        the (C, H, W') uint8 images: `segmentation` "net" runs the shipped
+        FastSCNN, any other value the sky heuristic."""
+        engine = "net" if self.cfg.segmentation == "net" else "heuristic"
+        return segmentation.keypoint_weights(imgs_d.to(torch.float32) * (1.0 / 255.0), uv,
+                                             engine)
 
     def detect_and_describe(self, images: List[np.ndarray], T_WS_pred: np.ndarray):
         """Stage 2 of the synchronous path: detection and description of
@@ -608,7 +626,8 @@ class VioPipeline:
             if len(ks) == 0:
                 continue
             fd.lid[ks] = cand
-            est.add_observations_batch(fid, c, fd.lid[ks], fd.uv[ks])
+            est.add_observations_batch(fid, c, fd.lid[ks], fd.uv[ks],
+                                       sigma=self._obs_sigma(fd, ks))
             n_map += len(ks)
 
         dedup = None
@@ -672,8 +691,11 @@ class VioPipeline:
                 new_i1.append(i1)
                 n_stereo += 1
             if new_lid:
-                est.add_observations_batch(fid, 0, new_lid, fd0.uv[np.asarray(new_i0)])
-                est.add_observations_batch(fid, 1, new_lid, fd1.uv[np.asarray(new_i1)])
+                new_i0, new_i1 = np.asarray(new_i0), np.asarray(new_i1)
+                est.add_observations_batch(fid, 0, new_lid, fd0.uv[new_i0],
+                                           sigma=self._obs_sigma(fd0, new_i0))
+                est.add_observations_batch(fid, 1, new_lid, fd1.uv[new_i1],
+                                           sigma=self._obs_sigma(fd1, new_i1))
 
         n_motion = 0
         kfd = self.frames[kf_fid][0] if kf_fid in self.frames else None
@@ -702,9 +724,20 @@ class VioPipeline:
                 new_ik.append(i_k)
                 n_motion += 1
             if new_lid:
-                est.add_observations_batch(kf_fid, 0, new_lid, kfd.uv[np.asarray(new_ik)])
-                est.add_observations_batch(fid, 0, new_lid, fd.uv[np.asarray(new_ic)])
+                new_ik, new_ic = np.asarray(new_ik), np.asarray(new_ic)
+                est.add_observations_batch(kf_fid, 0, new_lid, kfd.uv[new_ik],
+                                           sigma=self._obs_sigma(kfd, new_ik))
+                est.add_observations_batch(fid, 0, new_lid, fd.uv[new_ic],
+                                           sigma=self._obs_sigma(fd, new_ic))
         return n_map, n_stereo, n_motion
+
+    def _obs_sigma(self, fd: FrameData, ks):
+        """Observation sigmas of keypoints `ks` of `fd`: the keypoint sigma
+        scaled by the frame's class weights, or None (the estimator's
+        keypoint sigma) without them."""
+        if fd.w is None:
+            return None
+        return self.est.cfg.keypoint_sigma_px * fd.w[ks]
 
     def _set_landmark_desc(self, lid: int, fd: FrameData, k: int):
         """Give a landmark keypoint k's descriptor of `fd`, or queue the
@@ -1534,7 +1567,8 @@ class VioPipeline:
         sync (the staging uploads go through pinned memory).  Returns the
         handle that `frontend_consume` takes once the cycle's critical block
         has landed: the critical block `crit`, a float64 vector [uv (C, N,
-        2) | valid (C, N) | ASSOC_KEYS], and the descriptor block `desc`
+        2) | valid (C, N) | with `segmentation`, the keypoints' sigma
+        multipliers (C, N) | ASSOC_KEYS], and the descriptor block `desc`
         (C, N, 12) int32, both on the device; the frame's depth images ride
         along to the consume."""
         st = self._assoc_stage(T_WS_pred)
@@ -1542,7 +1576,10 @@ class VioPipeline:
         uv, valid, packed = self._detect_describe_device(
             imgs_d, self._gravity_angles(imgs_d.shape[0], T_WS_pred))
         res = self._assoc_core(uv.to(self.est.cfg.dtype), valid, packed, s)
-        crit = torch.cat([uv.reshape(-1).to(torch.float64), valid.reshape(-1).to(torch.float64)]
+        cols = [uv, valid]
+        if self.cfg.segmentation != "off":
+            cols.append(self._keypoint_weights(imgs_d, uv))
+        crit = torch.cat([x.reshape(-1).to(torch.float64) for x in cols]
                          + [res[k].reshape(-1).to(torch.float64) for k in ASSOC_KEYS])
         return dict(fid=fid, t=t, crit=crit, desc=packed, stage=st, log_idx=len(self.states_log),
                     depth_images=depth_images)
@@ -1558,12 +1595,18 @@ class VioPipeline:
         uv = crit[:C * N * 2].reshape(C, N, 2)
         valid = crit[C * N * 2:C * N * 3].reshape(C, N) > 0
         res, o = {}, C * N * 3
+        w = None
+        if self.cfg.segmentation != "off":
+            w, o = crit[o:o + C * N].reshape(C, N), o + C * N
         for k in ASSOC_KEYS:
             n = int(np.prod(shapes[k]))
             res[k] = crit[o:o + n].reshape(shapes[k])
             o += n
         frame_data = [FrameData(uv=uv[c].copy(), valid=valid[c].copy(), packed=None)
                       for c in range(C)]
+        if w is not None:
+            for c, fd in enumerate(frame_data):
+                fd.w = w[c].copy()
         self.frames[h["fid"]] = frame_data
         return frame_data, self._assoc_consume(h["fid"], frame_data, h["stage"], res)
 

@@ -204,7 +204,6 @@ def test_unported_full_ba_threshold_raises():
 
     assert FullGraphOptimizer().full_ba_threshold == JFullGraphOptimizer().full_ba_threshold == 64
     assert PipelineConfig().full_ba_threshold == JPipelineConfig().full_ba_threshold == 0
-    PipelineConfig(full_ba_threshold=64).check_ported()
 
 
 def test_worker_failure_is_logged(caplog, monkeypatch):

@@ -473,8 +473,22 @@ def test_generate_writes_what_jax_writes(jax_dataset, tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(world="textured"), dict(with_classmap=True)])
 def test_generate_refuses_unported_worlds(kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="A5"):
-        synthetic.generate(str(tmp_path / "x"), duration=0.5, width=32, height=24, **kw)
+    """The textured world and the class maps are ported: the port's generator
+    writes what the JAX package's writes (the dot world with `with_classmap`
+    an empty seg0/, as there); only an unknown world is refused."""
+    args = dict(duration=0.5, width=32, height=24, **kw)
+    jsyn.generate(str(tmp_path / "j"), **args)
+    synthetic.generate(str(tmp_path / "p"), **args)
+    for sub in ("cam0", "cam1", "seg0"):
+        j, t = tmp_path / "j" / "mav0" / sub, tmp_path / "p" / "mav0" / sub
+        assert j.exists() == t.exists() == (sub != "seg0" or "with_classmap" in kw)
+        if j.exists():
+            assert (j / "data.csv").read_text() == (t / "data.csv").read_text()
+            for f in sorted(os.listdir(j / "data")):
+                np.testing.assert_array_equal(png.read(str(t / "data" / f)),
+                                              np.asarray(Image.open(j / "data" / f)))
+    with pytest.raises(ValueError, match="unknown world"):
+        synthetic.generate(str(tmp_path / "x"), duration=0.5, width=32, height=24, world="A5")
 
 
 @pytest.mark.parametrize("gps_type", ["cartesian", "geodetic"])

@@ -305,14 +305,16 @@ def test_lc_match_matches_jax():
     dict(pipelined_solve=False, segmentation="net"),
 ])
 def test_unported_loop_closure_features_raise(unported):
-    """Semantic keypoint weighting (the learned and the heuristic weights on
-    the pipelined path, the learned ones on the synchronous path and inside
-    the deferred fused frontend) raises instead of running something else."""
+    """Semantic keypoint weighting is ported: the learned and the heuristic
+    weights on the pipelined path, the learned ones on the synchronous path
+    and inside the deferred fused frontend build a pipeline that keeps the
+    option (tests/test_torch_segmentation.py holds what it does to JAX's)."""
     from okvis2x_tpu_torch.pipeline.vio import PipelineConfig as TPipelineConfig
 
     cam = convert.camera(jax.tree.map(np.asarray, make_jest()[1]))
     T_SC = np.array([[0, 0, 0, 0, 0, 0, 1.0]])
     sync = dict(do_loop_closures=True, async_place_recognition=False, async_loop_closure=False)
     est_cfg = convert.estimator_config(EstimatorConfig())
-    with pytest.raises(NotImplementedError):
-        VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
+    pipe = VioPipeline([cam], T_SC, est_cfg, TPipelineConfig(**(sync | unported)), device="cpu")
+    assert pipe.cfg.segmentation == unported["segmentation"]
+    pipe.finish()

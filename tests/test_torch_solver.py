@@ -388,5 +388,5 @@ def test_convert_round_trips(window):
     pcfg = convert.pipeline_config(JPipelineConfig(max_keypoints=256, do_loop_closures=False,
                                                    pose_refine=False, pipelined_solve=False))
     assert pcfg.max_keypoints == 256 and not pcfg.do_loop_closures
-    with pytest.raises(NotImplementedError):
-        convert.pipeline_config(JPipelineConfig(segmentation="heuristic")).check_ported()
+    assert convert.pipeline_config(JPipelineConfig(segmentation="heuristic")).segmentation \
+        == "heuristic"
