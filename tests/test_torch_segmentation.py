@@ -76,6 +76,7 @@ def jax_ref(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def flax_net():
+    jseg.trained_net()  # loaded outside any trace, so that jitted calls may use it (C-R20)
     params, _ = jseg.load_params()
     net = seg.FastSCNN()
     net.load_state_dict(convert.fast_scnn_params(params))
@@ -139,7 +140,8 @@ def test_keypoint_weights_match_jax(flax_net):
     grid = np.stack(np.meshgrid(np.arange(22, 57, 7), np.arange(12, 29, 2)), -1).reshape(-1, 2)
     uv[:len(grid)] = grid  # on the patch
     for engine in ("net", "heuristic", "auto"):
-        ref = np.asarray(jseg.keypoint_weights(jnp.asarray(img), jnp.asarray(uv), engine=engine))
+        run = jax.jit(lambda im, kp: jseg.keypoint_weights(im, kp, engine=engine))
+        ref = np.asarray(run(jnp.asarray(img), jnp.asarray(uv)))
         got = seg.keypoint_weights(torch.from_numpy(img), torch.from_numpy(uv), engine=engine)
         np.testing.assert_array_equal(got.numpy(), ref.astype(np.float32))
         assert set(np.unique(ref)) <= {1.0, 3.0, 5.0}
